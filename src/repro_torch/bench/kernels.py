@@ -1,0 +1,120 @@
+"""The block-sparse kernel legs of the benchmark, on the port's kernels.
+
+The port of the ``bcsr_spmm`` and ``sddmm`` legs of the reference's
+``benchmarks/kernels.py``, at the benchmark's own shapes:
+
+* ``bcsr_spmm``: a 1024 x 1024 A of 128 x 128 blocks at 12.5% block
+  density times a dense (1024, 512) B;
+* ``sddmm``: the 4096-token sparse-attention scores, d = 512, 128 x 128
+  blocks at a 6% block mask (the reference cut the tokens to 256 for the
+  CPU interpreter; the card runs the full case).
+
+Inputs come from ``numpy.random.default_rng(seed)`` in the reference's
+draw order.  Each leg runs the kernel wrapper and holds it against the
+plain version on the same inputs (rtol = atol = 1e-4 for f32, as the
+reference; 2e-2 for bf16, as its kernel tests).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain, sddmm_blocks,
+                                 sddmm_blocks_plain)
+from repro_torch.sparse.formats import BCSR
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def leg_inputs(dtype=torch.float32, device="cuda", seed: int = 0) -> dict:
+    """Both legs' operands, drawn in the reference's order."""
+    rng = np.random.default_rng(seed)
+    m = n = 1024
+    k = 512
+    bm = bn = 128
+    mask = rng.random((m // bm, n // bn)) < 0.125
+    a_dense = np.where(np.repeat(np.repeat(mask, bm, 0), bn, 1),
+                       rng.standard_normal((m, n)), 0).astype(np.float32)
+    a = BCSR.from_dense(a_dense, block=(bm, bn), dtype=dtype, device=device)
+    b = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32),
+                        device=device).to(dtype)
+
+    s, d = 4096, 512
+    nblk = int((s // bm) * (s // bn) * 0.06)
+    brow = torch.as_tensor(rng.integers(0, s // bm, nblk).astype(np.int32),
+                           device=device)
+    bcol = torch.as_tensor(rng.integers(0, s // bn, nblk).astype(np.int32),
+                           device=device)
+    a2 = torch.as_tensor(rng.standard_normal((s, d)).astype(np.float32),
+                         device=device).to(dtype)
+    b2 = torch.as_tensor(rng.standard_normal((d, s)).astype(np.float32),
+                         device=device).to(dtype)
+    return dict(bcsr_spmm=dict(a=a, b=b),
+                sddmm_blocks=dict(brow=brow, bcol=bcol, a=a2, b=b2, bm=bm,
+                                  bn=bn))
+
+
+def run_kernel(name: str, args: dict) -> torch.Tensor:
+    """The kernel wrapper of a leg on its inputs."""
+    if name == "bcsr_spmm":
+        return bcsr_spmm(args["a"], args["b"])
+    return sddmm_blocks(args["brow"], args["bcol"], args["a"], args["b"],
+                        bm=args["bm"], bn=args["bn"])
+
+
+def run_plain(name: str, args: dict) -> torch.Tensor:
+    """The plain PyTorch version of a leg on its inputs."""
+    if name == "bcsr_spmm":
+        return bcsr_spmm_plain(args["a"], args["b"])
+    return sddmm_blocks_plain(args["brow"], args["bcol"], args["a"],
+                              args["b"], bm=args["bm"], bn=args["bn"])
+
+
+def work(name: str, args: dict) -> dict:
+    """FLOPs and bytes this leg's data needs: every live block's product,
+    each needed input byte read once, the output written once."""
+    if name == "bcsr_spmm":
+        a, b = args["a"], args["b"]
+        bm, bn = a.block
+        k = b.shape[1]
+        live = a.indices[:a.n_blocks]
+        es = a.blocks.element_size()
+        n_cols = int(torch.unique(live).numel())
+        flops = 2 * a.n_blocks * bm * bn * k
+        nbytes = (a.n_blocks * bm * bn * es + n_cols * bn * k * es
+                  + (a.indptr.numel() + live.numel()) * 4
+                  + a.shape[0] * k * 4)
+    else:
+        bm, bn = args["bm"], args["bn"]
+        a, b = args["a"], args["b"]
+        d = a.shape[1]
+        nblk = args["brow"].numel()
+        es = a.element_size()
+        rows = int(torch.unique(args["brow"]).numel())
+        cols = int(torch.unique(args["bcol"]).numel())
+        flops = 2 * nblk * bm * bn * d
+        nbytes = ((rows * bm + cols * bn) * d * es + 2 * nblk * 4
+                  + nblk * bm * bn * 4)
+    return dict(flops=flops, bytes=nbytes)
+
+
+def main(device="cuda", dtypes=(torch.float32, torch.bfloat16),
+         seed: int = 0) -> dict:
+    """Run both legs in every dtype; raise if a kernel disagrees with its
+    plain version.  Returns ``{name: {dtype_name: max_abs_err}}``."""
+    out: dict = {"bcsr_spmm": {}, "sddmm_blocks": {}}
+    for dtype in dtypes:
+        legs = leg_inputs(dtype, device, seed)
+        for name, args in legs.items():
+            got = run_kernel(name, args)
+            want = run_plain(name, args)
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {dtype}: bad output")
+            tol = TOL[dtype]
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                raise AssertionError(
+                    f"{name} {dtype}: max |err| "
+                    f"{(got - want).abs().max().item()} over tolerance {tol}")
+            out[name][str(dtype).removeprefix("torch.")] = \
+                (got - want).abs().max().item()
+    return out

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports torch and numpy, never JAX and
+nothing of the JAX package or the reference benchmarks, and its chip
+smoke script refuses to run without a card."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro|benchmarks)\b(?!_)"
+    r"|from\s+(jax|repro|benchmarks)\b(?!_))", re.M)
+
+
+def _port_modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_imports_pull_in_no_jax_and_no_reference():
+    """(f) a fresh interpreter imports every port module and the chip
+    smoke script's helpers; neither jax nor any repro./benchmarks module
+    is loaded."""
+    mods = _port_modules()
+    assert "repro_torch.core.machine" in mods
+    assert "repro_torch.kernels.bcsr_spmm" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith(('repro.', 'benchmarks')))\n"
+        "assert not bad, bad\n"
+        "assert chip_smoke.main and chip_smoke.time_ms\n"
+        "print('isolated')\n")
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated" in out.stdout
+
+
+def test_sources_have_no_forbidden_imports():
+    """No import line of the port or the smoke script names jax, repro
+    or benchmarks."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(SRC, "repro_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    for p in paths:
+        with open(p) as f:
+            hits = FORBIDDEN.findall(f.read())
+        assert not hits, (p, hits)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result,
+    in the repository and alone in an empty directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        alone.write_text(f.read())
+    env = dict(os.environ, PYTHONPATH="")
+    for script, cwd in ((os.path.join(ROOT, "chip_smoke.py"), ROOT),
+                        (str(alone), str(tmp_path))):
+        out = subprocess.run([sys.executable, script], capture_output=True,
+                             text=True, timeout=300, env=env, cwd=cwd)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
