@@ -1,4 +1,6 @@
-"""The paper grids and their golden results (``golden/paper_grid.json``).
+"""Golden results the card runs are held to.
+
+**The paper grids** (``golden/paper_grid.json``).
 
 The golden file holds the JAX reference's results for two grids:
 
@@ -11,6 +13,14 @@ Each lane records ``RunResult.to_json()``, the full per-PE stall matrix
 and a sha256 of the lane's ``mem_val`` image.  A test regenerates the
 file from the reference and fails on any difference; a run on the card
 is held to it bit for bit with :func:`check_lanes`.
+
+**Reduced serving** (``golden/serve_reduced.json``): the JAX reference's
+``serve_batch`` greedy tokens at the reduced Phi-3.5-MoE config (2 layers,
+d 128, 4 experts top-2) with f32 parameters from :func:`serve_params_numpy`
+on the requests of ``examples/serve_moe.py`` (:func:`serve_requests`), and
+each token's top-2 logit margin from the port's f32 CPU run, whose tokens
+equal the reference's.  A test regenerates the file; a card run is held to
+it with :func:`check_serve_tokens`.
 """
 from __future__ import annotations
 
@@ -19,9 +29,17 @@ import json
 import os
 
 import numpy as np
+import torch
 
-GOLDEN_PATH = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                           "golden", "paper_grid.json")
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                          "golden")
+GOLDEN_PATH = os.path.join(GOLDEN_DIR, "paper_grid.json")
+SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
+#: the reduced serving run: arch, traffic of examples/serve_moe.py, seed
+SERVE_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", max_new_tokens=8,
+                  batch_slots=3, cache_len=128, param_seed=0)
+#: tokens are compared up to the first one won by less than this margin
+SERVE_MARGIN = 1e-3
 MAX_CYCLES = 400_000
 
 #: name -> (workload names or None for all, modes or None for all, sizes)
@@ -72,3 +90,94 @@ def check_lanes(got: dict, want: dict) -> None:
                 if got[k].get(f) != want[k][f]}
         raise AssertionError(f"{len(bad)} lanes differ from the golden "
                              f"results, first {k}: {diff}")
+
+
+def serve_requests() -> list:
+    """The six requests of ``examples/serve_moe.py`` (4-11 prompt
+    tokens in [1, 500), from ``default_rng(0)``)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, 500, size=(rng.integers(4, 12),))
+            for _ in range(6)]
+
+
+def first_wave_tokens(slots: int, device) -> torch.Tensor:
+    """(slots, plen) int32: the first ``slots`` of :func:`serve_requests`
+    left-padded with 0 to the longest, as ``serve_batch``'s prefill."""
+    reqs = serve_requests()[:slots]
+    plen = max(len(r) for r in reqs)
+    toks = torch.zeros((slots, plen), dtype=torch.int32, device=device)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r):] = torch.as_tensor(r)
+    return toks
+
+
+def serve_params_numpy(cfg, seed: int = 0) -> dict:
+    """f32 parameters of a dense / MoE transformer in the reference's
+    pytree layout (a leading layer axis under ``"blocks"``), drawn from
+    ``default_rng(seed)`` at the reference's scales; norms are ones."""
+    rng = np.random.default_rng(seed)
+    n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ones(shape):
+        return np.ones(shape, np.float32)
+
+    hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+    blocks = {"ln1": {"g": ones((n, d))}, "ln2": {"g": ones((n, d))},
+              "attn": {"wq": normal((n, d, hq), d ** -0.5),
+                       "wk": normal((n, d, hk), d ** -0.5),
+                       "wv": normal((n, d, hk), d ** -0.5),
+                       "wo": normal((n, hq, d), hq ** -0.5)}}
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_expert
+        blocks["moe"] = {"router": normal((n, d, e), d ** -0.5),
+                         "wi": normal((n, e, d, f), e ** -0.5),
+                         "wg": normal((n, e, d, f), e ** -0.5),
+                         "wo": normal((n, e, f, d), f ** -0.5)}
+        if cfg.moe.n_shared:
+            fs = cfg.moe.n_shared * max(cfg.moe.d_shared, 1)
+            blocks["moe"]["shared"] = {"wi": normal((n, d, fs), d ** -0.5),
+                                       "wg": normal((n, d, fs), d ** -0.5),
+                                       "wo": normal((n, fs, d), fs ** -0.5)}
+    else:
+        f = cfg.d_ff
+        blocks["mlp"] = {"wi": normal((n, d, f), d ** -0.5),
+                         "wg": normal((n, d, f), d ** -0.5),
+                         "wo": normal((n, f, d), f ** -0.5)}
+    tree = {"embed": {"e": normal((v, d), 1.0)},
+            "final_norm": {"g": ones((d,))}, "blocks": blocks}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"w": normal((d, v), d ** -0.5)}
+    return tree
+
+
+def load_serve_golden(path: str = SERVE_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_serve_tokens(outputs: list, want: dict) -> int:
+    """Hold served token lists to the golden record: each request's tokens
+    must equal the golden ones up to (not including) its first token won
+    by less than :data:`SERVE_MARGIN`.  Returns how many were compared."""
+    if len(outputs) != len(want["tokens"]):
+        raise AssertionError(f"{len(outputs)} requests served, golden has "
+                             f"{len(want['tokens'])}")
+    compared = 0
+    for i, (got, toks, marg) in enumerate(zip(outputs, want["tokens"],
+                                              want["margins"])):
+        got = [int(t) for t in got]
+        if len(got) != len(toks):
+            raise AssertionError(f"request {i}: {len(got)} tokens, golden "
+                                 f"has {len(toks)}")
+        for j, (g, t, m) in enumerate(zip(got, toks, marg)):
+            if m < SERVE_MARGIN:
+                break
+            if g != t:
+                raise AssertionError(f"request {i} token {j}: {g} != golden "
+                                     f"{t} (margin {m:.3g}); got {got}, "
+                                     f"golden {toks}")
+            compared += 1
+    return compared

@@ -1,29 +1,36 @@
-"""The block-sparse kernel legs of the benchmark, on the port's kernels.
+"""The kernel legs of the benchmark, on the port's kernels.
 
-The port of the ``bcsr_spmm`` and ``sddmm`` legs of the reference's
-``benchmarks/kernels.py``, at the benchmark's own shapes:
+The port of the ``bcsr_spmm``, ``sddmm`` and ``group_matmul`` legs of the
+reference's ``benchmarks/kernels.py``, at the benchmark's own shapes:
 
 * ``bcsr_spmm``: a 1024 x 1024 A of 128 x 128 blocks at 12.5% block
   density times a dense (1024, 512) B;
 * ``sddmm``: the 4096-token sparse-attention scores, d = 512, 128 x 128
   blocks at a 6% block mask (the reference cut the tokens to 256 for the
-  CPU interpreter; the card runs the full case).
+  CPU interpreter; the card runs the full case);
+* ``group_matmul``: the phi-MoE expert product, 16 experts x capacity
+  1024 tokens, d 1024 -> f 4096, ``tile_m`` 32 (the reference cut it to
+  4 experts x 64 for the CPU interpreter; the card runs the full case).
 
 Inputs come from ``numpy.random.default_rng(seed)`` in the reference's
-draw order.  Each leg runs the kernel wrapper and holds it against the
-plain version on the same inputs (rtol = atol = 1e-4 for f32, as the
-reference; 2e-2 for bf16, as its kernel tests).
+draw order (the expert product's after the block-sparse legs').  Each
+leg runs the kernel wrapper and holds it against the plain version on
+the same inputs (rtol = atol = 1e-4 for f32, as the reference; 2e-2 for
+bf16, as its kernel tests).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain, sddmm_blocks,
+from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain, group_matmul,
+                                 group_matmul_plain, sddmm_blocks,
                                  sddmm_blocks_plain)
 from repro_torch.sparse.formats import BCSR
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the phi-MoE expert product of the reference benchmark
+MOE_LEG = dict(e=16, c=8192 * 2 // 16, d=1024, f=4096, tile_m=32)
 
 
 def leg_inputs(dtype=torch.float32, device="cuda", seed: int = 0) -> dict:
@@ -49,15 +56,29 @@ def leg_inputs(dtype=torch.float32, device="cuda", seed: int = 0) -> dict:
                          device=device).to(dtype)
     b2 = torch.as_tensor(rng.standard_normal((d, s)).astype(np.float32),
                          device=device).to(dtype)
+
+    e, c, dm, f = (MOE_LEG[k] for k in ("e", "c", "d", "f"))
+    tile_m = MOE_LEG["tile_m"]
+    xe = rng.standard_normal((e * c, dm), dtype=np.float32)
+    w = rng.standard_normal((e, dm, f), dtype=np.float32)
+    eid = np.repeat(np.arange(e, dtype=np.int32), c // tile_m)
     return dict(bcsr_spmm=dict(a=a, b=b),
                 sddmm_blocks=dict(brow=brow, bcol=bcol, a=a2, b=b2, bm=bm,
-                                  bn=bn))
+                                  bn=bn),
+                group_matmul=dict(
+                    x=torch.as_tensor(xe, device=device).to(dtype),
+                    eid=torch.as_tensor(eid, device=device),
+                    w=torch.as_tensor(w, device=device).to(dtype),
+                    tile_m=tile_m))
 
 
 def run_kernel(name: str, args: dict) -> torch.Tensor:
     """The kernel wrapper of a leg on its inputs."""
     if name == "bcsr_spmm":
         return bcsr_spmm(args["a"], args["b"])
+    if name == "group_matmul":
+        return group_matmul(args["x"], args["eid"], args["w"],
+                            tile_m=args["tile_m"])
     return sddmm_blocks(args["brow"], args["bcol"], args["a"], args["b"],
                         bm=args["bm"], bn=args["bn"])
 
@@ -66,6 +87,9 @@ def run_plain(name: str, args: dict) -> torch.Tensor:
     """The plain PyTorch version of a leg on its inputs."""
     if name == "bcsr_spmm":
         return bcsr_spmm_plain(args["a"], args["b"])
+    if name == "group_matmul":
+        return group_matmul_plain(args["x"], args["eid"], args["w"],
+                                  tile_m=args["tile_m"])
     return sddmm_blocks_plain(args["brow"], args["bcol"], args["a"],
                               args["b"], bm=args["bm"], bn=args["bn"])
 
@@ -84,6 +108,16 @@ def work(name: str, args: dict) -> dict:
         nbytes = (a.n_blocks * bm * bn * es + n_cols * bn * k * es
                   + (a.indptr.numel() + live.numel()) * 4
                   + a.shape[0] * k * 4)
+    elif name == "group_matmul":
+        x, w = args["x"], args["w"]
+        t, d = x.shape
+        es = x.element_size()
+        # the weights of every expert that owns a tile, read once
+        used = int(torch.unique(args["eid"]).numel())
+        f = w.shape[2]
+        flops = 2 * t * d * f
+        nbytes = (t * d + used * d * f) * es + args["eid"].numel() * 4 \
+            + t * f * 4
     else:
         bm, bn = args["bm"], args["bn"]
         a, b = args["a"], args["b"]
@@ -102,7 +136,7 @@ def main(device="cuda", dtypes=(torch.float32, torch.bfloat16),
          seed: int = 0) -> dict:
     """Run both legs in every dtype; raise if a kernel disagrees with its
     plain version.  Returns ``{name: {dtype_name: max_abs_err}}``."""
-    out: dict = {"bcsr_spmm": {}, "sddmm_blocks": {}}
+    out: dict = {"bcsr_spmm": {}, "sddmm_blocks": {}, "group_matmul": {}}
     for dtype in dtypes:
         legs = leg_inputs(dtype, device, seed)
         for name, args in legs.items():

@@ -4,6 +4,7 @@ The port imports nothing of the JAX package, so the two meet in numpy: a
 test turns the reference's ``MachineState`` into ``{field: np.asarray(leaf)}``
 and hands it to :func:`state_from_numpy`, which puts the *same* state on
 the port's device; :func:`state_to_numpy` goes the other way.
+:func:`params_from_numpy` does the same for a model's parameters.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.core.batch import BatchedWorkloads
 from repro_torch.core.machine import MachineState
+from repro_torch.models.lm import LM
 from repro_torch.sparse.formats import BCSR
 
 
@@ -54,3 +56,17 @@ def bcsr_from_numpy(indptr, indices, blocks, n_blocks, shape, block,
         indices=torch.as_tensor(np.array(indices, np.int32), device=device),
         blocks=torch.as_tensor(np.array(blocks), device=device),
         n_blocks=int(n_blocks), shape=tuple(shape), block=tuple(block))
+
+
+def params_from_numpy(tree: dict, cfg, device="cuda") -> LM:
+    """The reference's parameter pytree of a dense / MoE transformer, as
+    numpy with a leading layer axis under ``"blocks"`` -> the port's
+    :class:`repro_torch.models.lm.LM` on ``device``, dtypes kept."""
+    def leaves(t, i=None):
+        return {k: leaves(v, i) if isinstance(v, dict) else
+                torch.as_tensor(np.array(v if i is None else v[i]),
+                                device=device)
+                for k, v in t.items()}
+    top = {k: leaves(v) for k, v in tree.items() if k != "blocks"}
+    top["blocks"] = [leaves(tree["blocks"], i) for i in range(cfg.n_layers)]
+    return LM(top)

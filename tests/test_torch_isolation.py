@@ -33,6 +33,11 @@ def test_imports_pull_in_no_jax_and_no_reference():
     mods = _port_modules()
     assert "repro_torch.core.machine" in mods
     assert "repro_torch.kernels.bcsr_spmm" in mods
+    for m in ("repro_torch.kernels.group_matmul", "repro_torch.models.lm",
+              "repro_torch.models.moe", "repro_torch.sparse.dispatch",
+              "repro_torch.launch.serve", "repro_torch.serve.steps",
+              "repro_torch.configs.phi35_moe_42b"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
@@ -61,6 +66,34 @@ def test_sources_have_no_forbidden_imports():
         with open(p) as f:
             hits = FORBIDDEN.findall(f.read())
         assert not hits, (p, hits)
+
+
+def test_no_function_defaults_to_the_cpu():
+    """Every public function of the port that takes a ``device`` runs on
+    the card unless its caller names another device: the parameter
+    defaults to ``"cuda"`` or has no default."""
+    import importlib
+    import inspect
+    seen = []
+    for name in _port_modules():
+        mod = importlib.import_module(name)
+        for fname, fn in vars(mod).items():
+            if fname.startswith("_") or not inspect.isfunction(fn) or \
+                    fn.__module__ != name:
+                continue
+            p = inspect.signature(fn).parameters.get("device")
+            if p is None:
+                continue
+            seen.append(f"{name}.{fname}")
+            assert p.default in ("cuda", inspect.Parameter.empty), \
+                (seen[-1], p.default)
+    for f in ("repro_torch.models.layers.make_cache",
+              "repro_torch.models.layers.rmsnorm_init",
+              "repro_torch.models.layers.rope_freqs",
+              "repro_torch.models.lm.make_caches",
+              "repro_torch.launch.serve.serve_batch",
+              "repro_torch.core.machine.run_many"):
+        assert f in seen, f
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
