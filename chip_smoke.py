@@ -37,11 +37,14 @@ Phases (any failure raises and the script exits non-zero):
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each), at the
    f32 legs' shapes and, for ``group_matmul``, also at the serving
-   path's decode shape; compute each kernel's bound from the bytes and
-   FLOPs its data needs;
+   path's decode and prefill shapes; compute each kernel's bound from the
+   bytes and FLOPs its data needs, its share of that bound
+   (``bound_share``) and its time over the library call's
+   (``vs_library``);
 7. print the kernels line (a row per leg with the legs' launches, and a
-   ``group_matmul_serve`` row at the decode shape with the serving path's
-   launches), the card line and, last, the ok line.
+   ``group_matmul_serve`` row at the decode shape, with ``wo`` and the
+   prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
+   path's launches), the card line and, last, the ok line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
 is not available.
@@ -334,37 +337,49 @@ def run_reduced_serve() -> int:
     return compared
 
 
+def shares(row: dict) -> dict:
+    """The row's ranking keys: ``bound_share`` (bound_ms / ms: the share of
+    the card's least time the kernel reaches) and ``vs_library`` (ms /
+    library_ms: above 1 the kernel is slower than one PyTorch call)."""
+    lib = row.get("library_ms")
+    return dict(row, bound_share=row["bound_ms"] / row["ms"],
+                vs_library=None if lib is None else row["ms"] / lib)
+
+
 def serving_shape_times(served: dict, calls: dict) -> dict:
-    """The ``group_matmul_serve`` row: the kernel at the serving path's
-    first decode step (layer 0, bf16, tile_m 8), at ``wg``'s shape 4096
-    -> 6400 (``wi``'s too), with ``wo``'s 6400 -> 4096 beside it: kernel,
-    plain and ``torch.bmm`` times and the bound of the rows this step
-    needs; launches and max |err| are the serving path's."""
+    """The ``group_matmul_serve`` row: the kernel on the serving path's
+    layer-0 operands (bf16, tile_m 8) at the first decode step (capacity
+    1), ``wg``'s shape 4096 -> 6400 (``wi``'s too) in the row's own keys
+    and ``wo``'s 6400 -> 4096 beside it, and at the first prefill
+    (capacity 6 in one 8-row tile) for both: kernel, plain and
+    ``torch.bmm`` times and the bound of the rows each call needs;
+    launches and max |err| are the serving path's."""
     meta = KERNELS["group_matmul"]
     per_fwd = 3 * SERVE_LAYERS
     shapes = {}
-    for n, tag in ((per_fwd, "wg"), (per_fwd + 2, "wo")):
+    for n, tag in ((per_fwd, "wg"), (per_fwd + 2, "wo"), (0, "prefill_wg"),
+                   (2, "prefill_wo")):
         xe, w, _ = calls[n]
         e, c, d = xe.shape
         f = w.shape[2]
         nbytes = (e * c * d + e * d * f) * w.element_size() + e * c * f * 4
         flops = 2 * e * c * d * f
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS
-        shapes[tag] = dict(
+        shapes[tag] = shares(dict(
             shape=[e, c, d, f],
             ms=time_ms(lambda: moe.grouped_expert_matmul(xe, w)),
             plain_ms=time_ms(lambda: plain_grouped(xe, w)),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms(lambda: torch.bmm(xe, w)),
-            bytes=nbytes, flops=flops)
+            bytes=nbytes, flops=flops))
     wg = shapes.pop("wg")
     return dict(
         name="group_matmul_serve", route="cuda", source=meta["source"],
         replaces=meta["replaces"],
         launches=served["group_matmul_launches"],
         max_abs_err=max(served["max_abs_err"].values()), dtype="bfloat16",
-        **wg, wo=shapes["wo"])
+        **wg, **shapes)
 
 
 def check_kernels(errs: dict) -> list:
@@ -396,6 +411,8 @@ def check_kernels(errs: dict) -> list:
                 library_call(row["name"], legs[row["name"]]))
         except (RuntimeError, NotImplementedError) as e:
             row["library_error"] = f"{type(e).__name__}: {e}"[:300]
+    rows = [shares(row) for row in rows]
+    for row in rows:
         print(f"[kernel] {json.dumps(row)}", flush=True)
     return rows
 

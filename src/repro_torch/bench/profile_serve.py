@@ -48,7 +48,7 @@ def decode_profile(cfg, device, steps: int) -> dict:
         def run(n):
             nonlocal nxt, caches, pos
             for _ in range(n):
-                nxt, caches, _ = decode(params, caches, nxt, pos)
+                nxt, caches = decode(params, caches, nxt, pos)
                 pos += 1
             sync()
 

@@ -4,11 +4,13 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/group_matmul/kernel.py``
 (``pallas_call_group_matmul``; wrappers ``ops.py::group_matmul`` and
 ``ops.py::grouped_expert_matmul``).  On CUDA tensors :func:`group_matmul`
-launches the hand-written kernel ``csrc/group_matmul.cu`` (one CTA per
-64-column panel of one expert tile, walking the contraction in order,
-plain f32 FMA); on CPU tensors it runs :func:`group_matmul_plain`, the same
-function in plain PyTorch.  The kernel's bound and design are noted in the
-CUDA source's header.
+launches the hand-written kernel ``csrc/group_matmul.cu``, whose launcher
+picks the CTA shape from ``tile_m`` (a weight stream for tiles of up to 16
+rows, 128 x 128 tiles of the f32 tile core ``csrc/tile_f32.cuh`` for wider
+ones) and the load width from ``f`` and the alignment; every shape walks
+the contraction in order with plain f32 FMA.  On CPU tensors it runs :func:`group_matmul_plain`, the
+same function in plain PyTorch.  The kernel's bound and design are noted in
+the CUDA source's header.
 
 Unlike the reference wrapper, nothing pads ``d`` or ``f`` to 128: the
 kernel masks its edges, so the reference's ``dk`` / ``fk`` block sizes

@@ -4,8 +4,9 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/sddmm/kernel.py``
 (``pallas_call_sddmm``; wrapper ``ops.py::sddmm_blocks``).  On CUDA
 tensors :func:`sddmm_blocks` launches the hand-written kernel
-``csrc/sddmm.cu`` (one CTA per output tile of a block, walking the
-contraction in order, plain f32 FMA); on CPU tensors it runs
+``csrc/sddmm.cu`` (one CTA per 128 x 64 output tile of a block on the
+f32 tile core of ``csrc/tile_f32.cuh``, walking the contraction in order,
+plain f32 FMA); on CPU tensors it runs
 :func:`sddmm_blocks_plain`, the same function in plain PyTorch.  The
 kernel's bound and design are noted in the CUDA source's header.
 """

@@ -123,9 +123,10 @@ def test_cuda_group_matmul_serving_decode_shape(cuda_device, d, f):
 def test_cuda_group_matmul_errors(cuda_device):
     """A refused launch raises (a grid too tall for the card), and an
     expert id out of range gives NaN rows rather than a read outside w."""
-    x = torch.ones((8, 1), device=cuda_device)
-    w = torch.ones((1, 1, 64 * 70000), device=cuda_device)
-    eid = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    # 70,000 tiles: more than the 65,535 CTAs a grid's y axis takes
+    x = torch.ones((8 * 70000, 1), device=cuda_device)
+    w = torch.ones((1, 1, 8), device=cuda_device)
+    eid = torch.zeros((70000,), dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError, match="launch failed"):
         group_matmul(x, eid, w, tile_m=8)
     x = torch.ones((16, 4), device=cuda_device)
@@ -133,3 +134,160 @@ def test_cuda_group_matmul_errors(cuda_device):
     eid = torch.tensor([1, 5], dtype=torch.int32, device=cuda_device)
     got = group_matmul(x, eid, w, tile_m=8).cpu()
     assert torch.all(got[:8] == 4) and torch.isnan(got[8:]).all()
+
+
+# Each case reaches one launch variant of csrc/group_matmul.cu by name: the
+# weight stream for tile_m <= 8 ("stream8") and <= 16 ("stream16") with the
+# wide (16- or 8-byte) weight loads when f allows them ("vec") or scalar
+# loads ("scalar"), and the 128 x 128 tiled shape for wider tiles.  The
+# expert ids are a pattern: "runs" puts equal ids on neighbouring tiles
+# (one run per CTA where a CTA spans several tiles), "mixed" a new id on
+# every tile, "bad" an out-of-range id in the middle of a run.
+GM_VARIANTS = [
+    # variant, dtype, tiles, tile_m, d, f, experts, ids
+    ("stream8_vec", torch.bfloat16, 5, 1, 64, 256, 3, "mixed"),
+    ("stream8_vec", torch.bfloat16, 4, 8, 4100, 512, 4, "mixed"),
+    ("stream8_vec", torch.float32, 3, 4, 1500, 132, 2, "mixed"),
+    ("stream8_scalar", torch.bfloat16, 4, 8, 4100, 130, 4, "mixed"),
+    ("stream8_scalar", torch.float32, 6, 8, 300, 9, 3, "bad"),
+    ("stream16_vec", torch.bfloat16, 3, 16, 4500, 260, 3, "mixed"),
+    ("stream16_vec", torch.float32, 2, 12, 2100, 64, 2, "bad"),
+    ("stream16_scalar", torch.bfloat16, 3, 16, 1000, 65, 2, "mixed"),
+    ("tiled_vec", torch.float32, 12, 24, 200, 256, 3, "runs"),
+    ("tiled_vec", torch.float32, 16, 32, 136, 260, 3, "mixed"),
+    ("tiled_vec", torch.bfloat16, 8, 32, 512, 384, 4, "runs"),
+    ("tiled_vec", torch.float32, 6, 64, 96, 128, 2, "bad"),
+    ("tiled_vec", torch.float32, 3, 128, 1024, 200, 2, "mixed"),
+    ("tiled_scalar", torch.float32, 8, 32, 33, 65, 3, "runs"),
+    ("tiled_scalar", torch.bfloat16, 5, 24, 130, 72, 2, "bad"),
+]
+
+
+def _expert_ids(pattern, tiles, e, rng):
+    if pattern == "runs":
+        return (np.arange(tiles) // 4 % e).astype(np.int32)
+    ids = rng.integers(0, e, tiles).astype(np.int32)
+    if pattern == "mixed":
+        ids[1::2] = (ids[::2][:len(ids[1::2])] + 1) % e
+    else:   # "bad": out of range inside a run of equal ids
+        ids[:] = 0
+        ids[tiles // 2] = e + 3
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "variant,dtype,tiles,tile_m,d,f,e,ids", GM_VARIANTS,
+    ids=[f"{v[0]}-{str(v[1])[6:]}-t{v[3]}-d{v[4]}-f{v[5]}-{v[7]}"
+         for v in GM_VARIANTS])
+def test_cuda_group_matmul_launch_variants(cuda_device, variant, dtype, tiles,
+                                           tile_m, d, f, e, ids):
+    """Every launch variant of the grouped-matmul kernel against the plain
+    version: tile_m 1 to 128, aligned and unaligned f, d past the stream
+    shape's shared-memory slab of x (4096 bf16 / 1024 f32 rows at 8 rows,
+    2048 / 1024 at 16), tiles of one CTA with equal and with different
+    expert ids, and NaN rows for an out-of-range id; one launch a call."""
+    shape, _, load = variant.partition("_")
+    # the case reaches its variant: the launcher's choice, by shape
+    assert (tile_m <= 8 if shape == "stream8" else
+            8 < tile_m <= 16 if shape == "stream16" else tile_m > 16)
+    if shape == "tiled":
+        wide = d % 4 == 0 and f % 4 == 0
+    else:   # a lane's columns: 16 bytes, or 8 for bf16 at 16 rows
+        wide = f % (8 if (shape, dtype) == ("stream8", torch.bfloat16)
+                    else 4) == 0
+    assert wide == (load == "vec")
+    rng = np.random.default_rng(tiles * 1000 + tile_m + d + f)
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    # unit-variance outputs at every depth
+    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+                        dtype=dtype, device=cuda_device)
+    eid = torch.as_tensor(_expert_ids(ids, tiles, e, rng), device=cuda_device)
+    before = group_matmul.launches
+    got = group_matmul(x, eid, w, tile_m=tile_m)
+    torch.cuda.synchronize()
+    assert group_matmul.launches == before + 1
+    want = group_matmul_plain(x, eid, w, tile_m=tile_m)
+    bad = ((eid < 0) | (eid >= e)).repeat_interleave(tile_m)
+    assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
+    # f32: 1e-5 up to d = 128 as the reference kernel tests, 1e-4 past it
+    # as the reference benchmark; bf16 products are exact in f32, so only
+    # the summation order differs, and 2e-2 is the reference's bf16 limit
+    tol = (1e-5 if d <= 128 else 1e-4) if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n,bm,bn,dk,nblk,live", [
+    (256, 512, 512, 128, 128, 128, 9, 6),     # the leg's blocks, lanes past 6
+    (64, 100, 96, 16, 16, 128, 11, None),     # d padded to dk
+    (32, 203, 48, 8, 8, 1, 7, 3),             # d % 4 != 0: scalar loads
+    (256, 72, 36, 128, 6, 8, 5, None),        # bn % 4 != 0: scalar loads
+    (384, 64, 256, 128, 128, 64, 4, 0),       # no live lane: all zero
+])
+def test_cuda_sddmm_tiles(cuda_device, dtype, m, d, n, bm, bn, dk, nblk,
+                          live):
+    """The sddmm kernel on the f32 tile core against the plain version:
+    128 x 64 CTA tiles over blocks of 8, 16, 128 (and 6 columns), d that
+    is not a multiple of dk or of 4, and lanes at or past n_blocks zero."""
+    rng = np.random.default_rng(m + d + n + bm)
+    a = torch.as_tensor(rng.standard_normal((m, d)), dtype=dtype,
+                        device=cuda_device)
+    # unit-variance outputs at every depth
+    b = torch.as_tensor(rng.standard_normal((d, n)) / np.sqrt(d), dtype=dtype,
+                        device=cuda_device)
+    brow = torch.as_tensor(rng.integers(0, m // bm, nblk), dtype=torch.int32,
+                           device=cuda_device)
+    bcol = torch.as_tensor(rng.integers(0, n // bn, nblk), dtype=torch.int32,
+                           device=cuda_device)
+    before = sddmm_blocks.launches
+    got = sddmm_blocks(brow, bcol, a, b, bm=bm, bn=bn, dk=dk, n_blocks=live)
+    torch.cuda.synchronize()
+    assert sddmm_blocks.launches == before + 1
+    want = sddmm_blocks_plain(brow, bcol, a, b, bm=bm, bn=bn, n_blocks=live)
+    tol = (1e-5 if d <= 128 else 1e-4) if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if live is not None:
+        assert torch.all(got[live:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_kernels_do_not_round_to_tf32(cuda_device):
+    """f32 inputs whose products and sums are exact in f32 but not in TF32
+    (x = 1 + j 2^-13: TF32 keeps 10 mantissa bits and rounds x to 1), held
+    to the float64 result within 1e-4: both group_matmul shapes and sddmm.
+    A TF32 product would be off by about 0.1 here."""
+    rng = np.random.default_rng(7)
+    d = 256
+
+    def exact_x(rows):
+        return 1 + rng.integers(1, 8, (rows, d)) * 2.0 ** -13
+
+    w64 = rng.integers(1, 4, (2, d, 64)).astype(np.float64)
+    w = torch.as_tensor(w64, dtype=torch.float32, device=cuda_device)
+    for tile_m in (8, 32):
+        x64 = exact_x(4 * tile_m)
+        eid = np.array([0, 1, 1, 0], dtype=np.int32)
+        want = np.concatenate([x64[i * tile_m:(i + 1) * tile_m] @ w64[e]
+                               for i, e in enumerate(eid)])
+        got = group_matmul(torch.as_tensor(x64, dtype=torch.float32,
+                                           device=cuda_device),
+                           torch.as_tensor(eid, device=cuda_device), w,
+                           tile_m=tile_m)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=1e-4)
+    a64 = exact_x(256)
+    b64 = rng.integers(1, 4, (d, 128)).astype(np.float64)
+    brow = np.array([1, 0], dtype=np.int32)
+    bcol = np.array([0, 1], dtype=np.int32)
+    got = sddmm_blocks(torch.as_tensor(brow, device=cuda_device),
+                       torch.as_tensor(bcol, device=cuda_device),
+                       torch.as_tensor(a64, dtype=torch.float32,
+                                       device=cuda_device),
+                       torch.as_tensor(b64, dtype=torch.float32,
+                                       device=cuda_device), bm=128, bn=64)
+    want = np.stack([a64[r * 128:(r + 1) * 128] @ b64[:, c * 64:(c + 1) * 64]
+                     for r, c in zip(brow, bcol)])
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-4)
