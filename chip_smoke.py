@@ -41,7 +41,8 @@ Phases (any failure raises and the script exits non-zero):
    bytes and FLOPs its data needs, its share of that bound
    (``bound_share``) and its time over the library call's
    (``vs_library``);
-7. print the kernels line (a row per leg with the legs' launches, and a
+7. print the kernels line (a row per leg with the legs' launches,
+   ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, and a
    ``group_matmul_serve`` row at the decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
    path's launches), the card line and, last, the ok line.
@@ -72,6 +73,7 @@ from repro_torch.bench.workloads import make_all  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
+from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
 from repro_torch.kernels.group_matmul import tile_by_expert  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
@@ -403,6 +405,8 @@ def check_kernels(errs: dict) -> list:
             library_ms=None, dtype="float32",
             max_abs_err_bf16=errs[name]["bfloat16"],
             flops=w["flops"], bytes=w["bytes"])
+        if name == "bcsr_spmm":   # the cluster size the wrapper launched
+            row["split"] = launch_split(args["a"], args["b"])
         rows.append(row)
     # the library yardsticks last: a refused call cannot disturb the rest
     for row in rows:

@@ -4,33 +4,50 @@
 
 Profiles ``group_matmul`` at the f32 benchmark leg (the 128 x 128 tile
 core) and at the serving path's decode shape (the bf16 weight stream,
-16 experts, 4096 -> 6400, tile_m 8), and ``sddmm`` at its f32 leg
-(128 x 64 tiles), and prints one JSON line per kernel:
+16 experts, 4096 -> 6400, tile_m 8), ``sddmm`` at its f32 leg
+(128 x 64 tiles) and ``bcsr_spmm`` at its f32 leg (128 x 64 tiles, each
+row's contraction split over a cluster of ``split`` ranks), and prints
+one JSON line per kernel:
 
 * ``ms``: device time per call, the mean over the kernel events that
   ``torch.profiler`` kept of ``--reps`` calls (``events``);
 * ``launch``: what the profiler records of the kernel's launch (grid,
   block, registers per thread, shared memory, blocks and warps per SM,
   estimated achieved occupancy);
-* ``no_loads_ms`` (the two tile-core kernels): the same sources built
+* ``no_loads_ms`` (the tile-core kernels): the same sources built
   with the tile core's global loads replaced by constants, so that the
   shared-memory and FMA loop runs alone.  That loop is the floor the
   kernel cannot go below without a new inner loop; ``ms - no_loads_ms``
   is what waiting on the loads costs.
+* ``bcsr_spmm`` also: ``split`` (the wrapper's choice, the launch's
+  cluster size), ``ms_by_split`` (the time at each split of 1, 2, 4 and
+  8, each with its no-loads floor and its ``phases``) and ``empty_ms``
+  (the same launch with ``n_blocks = 0``: every output written as zeros,
+  the floor of the launch and of the output's bytes).  ``phases`` comes
+  from a build with ``-DBCSR_PHASES``, whose CTAs log the card's clock
+  (``%globaltimer``, us from the first CTA's start) at each phase of one
+  launch: the span, the row's index loads, the core's products (median
+  and max over the CTAs with work), the partials' sends, the cluster
+  barrier and the sum (medians), when the CTAs without work end, and how
+  many SMs hold 0, 1, 2, ... CTAs with work.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.bench import kernels as bench_kernels
-from repro_torch.kernels import _build, group_matmul
+from repro_torch.kernels import _build, bcsr_spmm, group_matmul
+from repro_torch.kernels.bcsr_spmm import (MAX_SPLIT, TILE_M, TILE_N,
+                                           launch_split)
 
 #: the tile core's fetch, and what the no-loads build puts in its place
 FETCH = "constexpr bool full = decltype(flag)::value;"
@@ -74,25 +91,16 @@ def kernel_profile(fn, symbol: str, reps: int) -> dict:
                 events=len(mine), launch=launch)
 
 
-def build_no_loads() -> dict:
-    """``group_matmul.cu`` and ``sddmm.cu`` built against a copy of
-    ``tile_f32.cuh`` whose fetch loads constants; {name: CDLL}."""
-    out = os.path.join(_build.BUILD_DIR, "no_loads")
+def _build_copies(sub: str, sources: dict, flags=()) -> dict:
+    """Build ``{name: source text}`` into ``build/repro_torch/<sub>/``, one
+    ``nvcc`` each, all started together; {name: CDLL}."""
+    out = os.path.join(_build.BUILD_DIR, sub)
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "tile_f32.cuh")) as f:
-        header = f.read()
-    if FETCH not in header:
-        raise RuntimeError("tile_f32.cuh no longer has the fetch this "
-                           "build replaces")
-    with open(os.path.join(out, "tile_f32.cuh"), "w") as f:
-        f.write(header.replace(FETCH, NO_LOADS))
     jobs = {}
-    for name in ("group_matmul", "sddmm"):
-        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
-            src = f.read()
+    for name, src in sources.items():
         with open(os.path.join(out, f"{name}.cu"), "w") as f:
             f.write(src)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
                os.path.join(out, f"{name}.so"), os.path.join(out, f"{name}.cu")]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
@@ -100,10 +108,72 @@ def build_no_loads() -> dict:
     for name, proc in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the no-loads {name}.cu:\n"
-                               f"{log}")
+            raise RuntimeError(f"nvcc failed on the {sub} {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(os.path.join(out, f"{name}.so"))
     return libs
+
+
+def _source(name: str) -> str:
+    with open(os.path.join(_build.CSRC, name)) as f:
+        return f.read()
+
+
+def build_no_loads() -> dict:
+    """``group_matmul.cu``, ``sddmm.cu`` and ``bcsr_spmm.cu`` built against
+    a copy of ``tile_f32.cuh`` whose fetch loads constants; {name: CDLL}."""
+    header = _source("tile_f32.cuh")
+    if FETCH not in header:
+        raise RuntimeError("tile_f32.cuh no longer has the fetch this "
+                           "build replaces")
+    out = os.path.join(_build.BUILD_DIR, "no_loads")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "tile_f32.cuh"), "w") as f:
+        f.write(header.replace(FETCH, NO_LOADS))
+    return _build_copies("no_loads", {
+        name: _source(f"{name}.cu")
+        for name in ("group_matmul", "sddmm", "bcsr_spmm")})
+
+
+def build_phases():
+    """``bcsr_spmm.cu`` built with its phase log (``-DBCSR_PHASES``)."""
+    return _build_copies("phases", {"bcsr_spmm": _source("bcsr_spmm.cu")},
+                         ("-DBCSR_PHASES", f"-I{_build.CSRC}"))["bcsr_spmm"]
+
+
+def phases(lib, call, n_ctas: int, n_sms: int) -> dict:
+    """The phase log of one ``call()`` (after three untimed ones) of the
+    phases build: us from the first CTA's start."""
+    log = np.zeros((8192, 8), np.uint64)
+    read = lib.bcsr_spmm_phases
+    read.argtypes = [ctypes.c_void_p]
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    _build.check_launch("bcsr_spmm_phases", read(log.ctypes.data))
+    call()
+    torch.cuda.synchronize()
+    _build.check_launch("bcsr_spmm_phases", read(log.ctypes.data))
+    t = log[:n_ctas, :6].astype(np.int64)
+    sm = log[:n_ctas, 7].astype(np.int64)
+    t = np.where(t > 0, t - t[:, 0].min(), -1) / 1e3
+    work = t[:, 2] >= 0
+
+    def med(x):   # the clock ticks in ns: keep three decimals of a us
+        return round(float(np.median(x)), 3) if len(x) else None
+
+    out = dict(span_us=round(float(t[:, 5].max()), 3),
+               index_us=med(t[:, 1] - t[:, 0]),
+               core_us=med(t[work, 2] - t[work, 1]),
+               core_max_us=round(float((t[work, 2] - t[work, 1]).max()), 3)
+               if work.any() else None,
+               idle_ctas_end_us=med(t[~work, 5]),
+               sms_by_working_ctas=np.bincount(np.bincount(
+                   sm[work], minlength=n_sms)).tolist())
+    if work.any() and (t[work, 3] >= 0).all():
+        out.update(send_us=med(t[work, 3] - t[work, 2]),
+                   barrier_us=med(t[work, 4] - t[work, 3]),
+                   sum_us=med(t[work, 5] - t[work, 4]))
+    return out
 
 
 def _entry(lib, symbol: str, n_ptrs: int, n_ints: int):
@@ -142,6 +212,24 @@ def main(argv=None) -> list:
                  "sddmm_blocks", sd), "sddmm_kernel", ns.reps)),
     ]
     del w
+    bc = legs["bcsr_spmm"]
+    a, b = bc["a"], bc["b"]
+    bm, bn = a.block
+    mb, kp = a.shape[0] // bm, b.shape[1]   # k = 512 needs no padding
+    split = launch_split(a, b)
+    splits = [1 << i for i in range(MAX_SPLIT.bit_length())]
+    bc_row = dict(name="bcsr_spmm", shape="leg, f32", split=split,
+                  **kernel_profile(lambda: bcsr_spmm(a, b), "bcsr_spmm_kernel",
+                                   ns.reps))
+    bc_row["launch"]["cluster"] = [split, 1, 1]
+    bc_row["ms_by_split"] = {
+        str(s): {"ms": kernel_profile(lambda s=s: bcsr_spmm(a, b, split=s),
+                                      "bcsr_spmm_kernel", ns.reps)["ms"]}
+        for s in splits}
+    empty = dataclasses.replace(a, n_blocks=0)
+    bc_row["empty_ms"] = kernel_profile(lambda: bcsr_spmm(empty, b),
+                                        "bcsr_spmm_kernel", ns.reps)["ms"]
+    rows.append(bc_row)
     libs = build_no_loads()
     stream = torch.cuda.current_stream().cuda_stream
     t, d = gm["x"].shape
@@ -152,6 +240,8 @@ def main(argv=None) -> list:
                          device="cuda")
     sd_fn = _entry(libs["sddmm"], "sddmm_f32", 5, 6)
     bcap = sd["brow"].numel()
+    bc_out = torch.empty((a.shape[0], kp), device="cuda")
+    bc_fn = _entry(libs["bcsr_spmm"], "bcsr_spmm_f32", 5, 6)
 
     def gm_call():
         _build.check_launch("group_matmul_f32", gm_fn(
@@ -165,11 +255,29 @@ def main(argv=None) -> list:
             sd["b"].data_ptr(), sd_out.data_ptr(), bcap, bcap, sd["bm"],
             sd["bn"], sd["a"].shape[1], sd["b"].shape[1], stream))
 
+    def bc_call(fn, s):
+        _build.check_launch("bcsr_spmm_f32", fn(
+            a.indptr.data_ptr(), a.indices.data_ptr(), a.blocks.data_ptr(),
+            b.data_ptr(), bc_out.data_ptr(), mb, bm, bn, kp, a.n_blocks, s,
+            stream))
+
     no_loads = {
         "group_matmul": kernel_profile(gm_call, "group_matmul_tiled",
                                        ns.reps),
         "sddmm_blocks": kernel_profile(sd_call, "sddmm_kernel", ns.reps),
     }
+    for s in splits:
+        bc_row["ms_by_split"][str(s)]["no_loads_ms"] = kernel_profile(
+            lambda s=s: bc_call(bc_fn, s), "bcsr_spmm_kernel", ns.reps)["ms"]
+    phase_lib = build_phases()
+    phase_fn = _entry(phase_lib, "bcsr_spmm_f32", 5, 6)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = mb * -(-bm // TILE_M) * -(-kp // TILE_N)
+    for s in splits:
+        bc_row["ms_by_split"][str(s)]["phases"] = phases(
+            phase_lib, lambda s=s: bc_call(phase_fn, s), tiles * s, n_sms)
+    no_loads["bcsr_spmm"] = dict(ms=bc_row["ms_by_split"][str(split)][
+        "no_loads_ms"])
     card = torch.cuda.get_device_name(0)
     for row in rows:
         if row["name"] in no_loads:

@@ -16,6 +16,7 @@ from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain,  # noqa: E402
                                  group_matmul, group_matmul_plain,
                                  grouped_expert_matmul, sddmm_blocks,
                                  sddmm_blocks_plain)
+from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.sparse.formats import BCSR  # noqa: E402
 
 
@@ -253,12 +254,100 @@ def test_cuda_sddmm_tiles(cuda_device, dtype, m, d, n, bm, bn, dk, nblk,
         assert torch.all(got[live:] == 0)
 
 
+# Each case of the bcsr_spmm kernel: block shape, live blocks in each
+# block-row (block-columns drawn at random), block-columns, k, bk, and how
+# many padding lanes past n_blocks the capacity adds (poisoned: 1e6 blocks
+# naming block-column 1).
+BCSR_CASES = [
+    # name, (bm, bn), blocks a row, nb, k, bk, padding lanes
+    ("leg_blocks", (128, 128), [2, 2, 0, 2], 8, 512, 128, 0),
+    ("row_of_7", (64, 48), [7, 3], 8, 256, 128, 0),   # ranges cross blocks
+    ("bn8", (8, 8), [3, 0, 5, 8, 1, 2, 0, 4], 8, 64, 64, 0),
+    ("bn16", (16, 16), [4, 1, 0, 6], 8, 128, 128, 0),
+    ("bn6_scalar", (16, 6), [3, 5, 0, 2], 10, 64, 64, 0),
+    ("k100_padded", (32, 32), [2, 4, 1, 3], 4, 100, 128, 0),
+    ("cap_past_live", (16, 16), [2, 0, 3, 1], 4, 64, 64, 5),
+    ("no_live_block", (128, 64), [0, 0], 2, 128, 128, 0),
+]
+
+
+def _bcsr_operands(rng, bm, bn, per_row, nb, k, pad, dtype, device):
+    """A block-CSR A with the given live blocks per block-row, its dense
+    B (unit-variance outputs at every depth), and the rows with no live
+    block."""
+    mb = len(per_row)
+    a_dense = np.zeros((mb * bm, nb * bn), np.float32)
+    for r, n in enumerate(per_row):
+        for c in rng.choice(nb, n, replace=False):
+            a_dense[r * bm:(r + 1) * bm, c * bn:(c + 1) * bn] = \
+                rng.standard_normal((bm, bn))
+    n_live = sum(per_row)
+    a = BCSR.from_dense(a_dense, block=(bm, bn), cap=max(1, n_live + pad),
+                        dtype=dtype, device=device)
+    if pad:
+        blocks, indices = a.blocks.clone(), a.indices.clone()
+        blocks[n_live:] = 1e6
+        indices[n_live:] = 1
+        a = BCSR(a.indptr, indices, blocks, a.n_blocks, a.shape, a.block)
+    depth = max(1, max(per_row) * bn)
+    b = torch.as_tensor(rng.standard_normal((nb * bn, k)) / np.sqrt(depth),
+                        dtype=dtype, device=device)
+    empty = np.repeat(np.asarray(per_row) == 0, bm)
+    return a, b, empty, depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,block,per_row,nb,k,bk,pad", BCSR_CASES,
+                         ids=[c[0] for c in BCSR_CASES])
+def test_cuda_bcsr_spmm_tiles(cuda_device, name, block, per_row, nb, k, bk,
+                              pad, dtype, split):
+    """The bcsr_spmm kernel (128 x 64 tiles of the f32 tile core, each
+    block-row's contraction split over a cluster of ``split`` ranks)
+    against the plain version: the leg's 128 x 128 blocks, a row of 7
+    blocks whose split ranges cross block boundaries, bn of 8, 16 and 6
+    (scalar loads), k padded to bk, padding lanes past n_blocks that must
+    not count, and an A without a live block; empty rows exactly zero."""
+    rng = np.random.default_rng(sum(per_row) * 100 + nb + k)
+    a, b, empty, depth = _bcsr_operands(rng, *block, per_row, nb, k, pad,
+                                        dtype, cuda_device)
+    before = bcsr_spmm.launches
+    got = bcsr_spmm(a, b, bk=bk, split=split)
+    torch.cuda.synchronize()
+    assert bcsr_spmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (a.shape[0], k)
+    want = bcsr_spmm_plain(a, b)
+    # f32: 1e-5 up to a depth of 128 as the reference kernel tests, 1e-4
+    # past it as the reference benchmark; bf16: the reference's 2e-2
+    tol = (1e-5 if depth <= 128 else 1e-4) if dtype == torch.float32 \
+        else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.all(got[torch.as_tensor(empty, device=cuda_device)] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_repeat_bit_equal(cuda_device):
+    """Two calls on the same inputs give the same bits: no kernel sums
+    with atomics, and the cluster reduction of bcsr_spmm adds its ranks'
+    partials in a fixed order at every split."""
+    legs = bench_kernels.leg_inputs(torch.float32, "cuda")
+    for name, args in legs.items():
+        first = bench_kernels.run_kernel(name, args)
+        assert torch.equal(first, bench_kernels.run_kernel(name, args)), name
+    a, b = legs["bcsr_spmm"]["a"], legs["bcsr_spmm"]["b"]
+    for split in (1, 2, 4, 8):
+        first = bcsr_spmm(a, b, split=split)
+        assert torch.equal(first, bcsr_spmm(a, b, split=split)), split
+
+
 @pytest.mark.cuda
 def test_cuda_f32_kernels_do_not_round_to_tf32(cuda_device):
     """f32 inputs whose products and sums are exact in f32 but not in TF32
     (x = 1 + j 2^-13: TF32 keeps 10 mantissa bits and rounds x to 1), held
-    to the float64 result within 1e-4: both group_matmul shapes and sddmm.
-    A TF32 product would be off by about 0.1 here."""
+    to the float64 result within 1e-4: both group_matmul shapes, sddmm and
+    bcsr_spmm at every split.  A TF32 product would be off by about 0.1
+    here."""
     rng = np.random.default_rng(7)
     d = 256
 
@@ -291,3 +380,17 @@ def test_cuda_f32_kernels_do_not_round_to_tf32(cuda_device):
     want = np.stack([a64[r * 128:(r + 1) * 128] @ b64[:, c * 64:(c + 1) * 64]
                      for r, c in zip(brow, bcol)])
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-4)
+    # two 128 x 128 blocks of A's first block-row and one of its second:
+    # depths of 256 and 128, split across block boundaries
+    a64 = np.zeros((256, 384))
+    for r, c in ((0, 0), (0, 2), (1, 1)):
+        a64[r * 128:(r + 1) * 128, c * 128:(c + 1) * 128] = exact_x(128)[
+            :, :128]
+    b64 = rng.integers(1, 4, (384, 64)).astype(np.float64)
+    a = BCSR.from_dense(a64.astype(np.float32), block=(128, 128),
+                        device=cuda_device)
+    b = torch.as_tensor(b64, dtype=torch.float32, device=cuda_device)
+    for split in (1, 2, 4, 8):
+        got = bcsr_spmm(a, b, split=split)
+        np.testing.assert_allclose(got.cpu().numpy(), a64 @ b64, rtol=0,
+                                   atol=1e-4)

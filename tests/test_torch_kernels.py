@@ -17,6 +17,8 @@ from repro.sparse.formats import BCSR as RefBCSR  # noqa: E402
 
 from repro_torch.convert import bcsr_from_numpy  # noqa: E402
 from repro_torch.kernels import bcsr_spmm, sddmm_blocks  # noqa: E402
+from repro_torch.kernels.bcsr_spmm import (MAX_SPLIT,  # noqa: E402
+                                           split_ranks)
 from repro_torch.sparse.formats import BCSR  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -107,6 +109,61 @@ def test_bcsr_spmm_plain_edge_cases(case):
         assert np.all(got[:8] == 0) and np.all(got[16:] == 0)
     if case == "all_zero":
         assert np.all(got == 0)
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("case", ["long_rows", "cap_past_live"])
+def test_bcsr_spmm_plain_long_rows_and_capacity(case, dtype_name):
+    """(d) the plain version equals the Pallas kernel (interpret mode) on
+    rows of 7 blocks (the kernel splits such a row's contraction across
+    block boundaries) and with a capacity past n_blocks whose padding
+    lanes hold 1e6 blocks naming a live block-column."""
+    rng = np.random.default_rng(11)
+    bm, bn = 8, 16
+    per_row = [7, 2, 0, 7] if case == "long_rows" else [1, 3, 0, 2]
+    a_dense = np.zeros((len(per_row) * bm, 8 * bn), np.float32)
+    for r, n in enumerate(per_row):
+        for c in rng.choice(8, n, replace=False):
+            a_dense[r * bm:(r + 1) * bm, c * bn:(c + 1) * bn] = \
+                rng.standard_normal((bm, bn))
+    cap = sum(per_row) + (6 if case == "cap_past_live" else 0)
+    ra, pa = _both_bcsr(a_dense, (bm, bn), dtype_name, cap=cap,
+                        poison=case == "cap_past_live")
+    assert pa.blocks.shape[0] == cap
+    b_np = rng.standard_normal((8 * bn, 48)).astype(np.float32)
+    jdt, tdt = DTYPES[dtype_name]
+    want = np.asarray(ref_bcsr_spmm(ra, jnp.asarray(b_np).astype(jdt),
+                                    interpret=True), np.float32)
+    got = bcsr_spmm(pa, torch.as_tensor(b_np).to(tdt)).numpy()
+    np.testing.assert_allclose(got, want, **_tol(dtype_name))
+    assert np.all(got[2 * bm:3 * bm] == 0)
+
+
+@pytest.mark.parametrize("mb,bm,kp,n_sms,fills", [
+    (8, 128, 512, 132, False),      # the bcsr_spmm leg: 64 tiles
+    (2, 128, 128, 132, False),      # 4 tiles
+    (1, 8, 64, 132, False),         # one tile
+    (40, 128, 512, 132, True),      # 320 tiles
+    (128, 16, 128, 132, True),      # 256 tiles of 16-row blocks
+    (33, 128, 256, 132, True),      # 132 tiles: one a SM
+])
+def test_bcsr_spmm_split_choice(mb, bm, kp, n_sms, fills):
+    """The kernel's split S comes from shapes alone: the same every call,
+    1 where the output tiles already fill the card, else the largest power
+    of two within the portable cluster size of 8 that keeps the CTAs in
+    one wave of two an SM (4 at the bcsr_spmm leg)."""
+    split = split_ranks(mb, bm, kp, n_sms)
+    assert split == split_ranks(mb, bm, kp, n_sms)
+    assert 1 <= split <= MAX_SPLIT == 8 and split & (split - 1) == 0
+    tiles = mb * -(-bm // 128) * -(-kp // 64)
+    assert (tiles >= n_sms) == fills
+    if (mb, bm, kp, n_sms) == (8, 128, 512, 132):
+        assert split == 4
+    if fills:
+        assert split == 1
+    else:
+        assert split > 1 and tiles * split <= 2 * n_sms
+        assert split == MAX_SPLIT or tiles * split * 2 > 2 * n_sms
 
 
 @pytest.mark.parametrize("dtype_name", list(DTYPES))
