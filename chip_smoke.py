@@ -17,7 +17,15 @@ Phases (any failure raises and the script exits non-zero):
    (``src/repro_torch/golden/paper_grid.json``) bit for bit, each leg must
    agree with its kernel's plain PyTorch version (rtol = atol = 1e-4 in
    f32, 2e-2 in bf16), and each of the three kernels must have been
-   launched;
+   launched.  Between the grids and the kernel legs, the ``[sweep]``
+   legs run through ``repro_torch.core.sweep.sweep(..., device="cuda")``
+   and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
+   for bit, the packing schedule and the engine telemetry field for
+   field): the packed Fig. 17 grid (9 lanes, 4 waves of 8x8
+   super-lanes), the 512-node pointer chase (8 lanes at 8x8) on the
+   fast-forward and on the plain engine, and a packed leg with a
+   per-lane deadline; each prints its wall, engine ticks, lane-cycles/s,
+   dead-step fraction, waves, packing efficiency and peak memory;
 4. the serving path, launch counts again from 0: Phi-3.5-MoE at full
    width (d 4096, 32/8 heads of 128, 16 experts top-2 of 6400, vocab
    32064), depth cut to 4 layers, bf16 parameters from a seeded
@@ -70,6 +78,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
+from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
@@ -191,21 +200,92 @@ def run_grids() -> dict:
     for name, spec in golden.GRIDS.items():
         wls = golden.grid_workloads(spec, all_wls)
         torch.cuda.reset_peak_memory_stats()
+        tel: dict = {}
         lanes, wall = harness.run_grid_lanes(
             wls, spec["modes"], max_cycles=golden.MAX_CYCLES,
-            sizes=spec["sizes"], device="cuda")
+            sizes=spec["sizes"], device="cuda", telemetry=tel)
         got = {golden.lane_key(ln.workload.name, ln.mode, ln.size):
                golden.lane_record(ln.result) for ln in lanes}
         golden.check_lanes(got, want[name]["lanes"])
         cycles = [ln.result.cycles for ln in lanes]
-        ticks = -(-max(cycles) // 512) * 512
+        # one engine call over every lane, each padded to the widest mesh
+        rows = len(lanes) * max(int(np.prod(ln.size or (4, 4)))
+                                for ln in lanes)
+        ticks = tel["stepped_pe_ticks"] // rows
         stats[name] = dict(
             lanes=len(lanes), wall_s=wall, lane_cycles=sum(cycles),
             engine_ticks=ticks, lane_cycles_per_s=sum(cycles) / wall,
             engine_ticks_per_s=ticks / wall,
+            dead_step_fraction=tel["dead_step_fraction"],
             peak_mem_bytes=torch.cuda.max_memory_allocated())
         print(f"[sim] {name}: {len(lanes)} lanes match the golden records; "
               f"{json.dumps(stats[name])}", flush=True)
+    return stats
+
+
+def sweep_rows(report, workloads) -> int:
+    """PE rows one engine call of a sweep steps a tick: the super-lanes of
+    a wave times the packing mesh, or the lanes times the widest mesh."""
+    if report.pack is not None:
+        per_wave = report.pack.n_super_lanes // report.pack.n_waves
+        return per_wave * max(int(np.prod(w["super_geom"]))
+                              for w in report.pack.plan)
+    return len(workloads) * max(int(np.prod(wl.geom)) for wl in workloads)
+
+
+def run_sweeps() -> dict:
+    """The ``[sweep]`` legs on the card through ``sweep(..., device=
+    "cuda")``, held to ``sweeps.json``: every lane bit for bit, the
+    packing schedule and the engine telemetry field for field; the chain
+    also on the plain engine (``fast_forward=False``), whose lanes must
+    equal the same golden lanes and which compresses nothing."""
+    want = golden.load_sweep_golden()
+    stats = {}
+    for name in golden.SWEEPS:
+        cfg, kw, keys = golden.port_sweep_leg(name)
+        engines = [("ff", cfg)]
+        if name == "chain":
+            engines.append(("plain", dataclasses.replace(
+                cfg, fast_forward=False)))
+        for eng, run_cfg in engines:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            report = sweep(run_cfg, SweepRequest(**kw), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = golden.sweep_record(name, keys, report)
+            golden.check_sweep(got, want[name], telemetry=eng == "ff")
+            tel = report.telemetry
+            if eng == "plain" and not (
+                    tel.stepped_pe_ticks == tel.plain_pe_ticks
+                    == want[name]["telemetry"]["plain_pe_ticks"]):
+                raise AssertionError(f"plain engine telemetry {tel}")
+            for key, wl, r in zip(keys, kw["workloads"], report):
+                if r.completed and not wl.check(r.mem_val):
+                    raise AssertionError(f"{name} {key}: WRONG RESULT")
+            cycles = [r.cycles for r in report]
+            ticks = tel.stepped_pe_ticks // sweep_rows(report,
+                                                       kw["workloads"])
+            row = dict(
+                leg=name, engine=eng, lanes=len(keys), wall_s=wall,
+                engine_ticks=ticks, engine_ticks_per_s=ticks / wall,
+                lane_cycles=sum(cycles), lane_cycles_per_s=sum(cycles) / wall,
+                dead_step_fraction=tel.dead_step_fraction,
+                stepped_pe_ticks=tel.stepped_pe_ticks,
+                plain_pe_ticks=tel.plain_pe_ticks,
+                n_waves=None if report.pack is None else report.pack.n_waves,
+                packing_efficiency=(None if report.pack is None
+                                    else report.pack.packing_efficiency),
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+            stats[f"{name}/{eng}"] = row
+            print(f"[sweep] {name} ({eng}): {len(keys)} lanes match the "
+                  f"golden records; {json.dumps(row)}", flush=True)
+    chain_ff, chain_plain = stats["chain/ff"], stats["chain/plain"]
+    print(f"[sweep] chain fast-forward speedup "
+          f"{chain_plain['wall_s'] / chain_ff['wall_s']:.3f}x "
+          f"({chain_plain['wall_s']:.3f} s plain, {chain_ff['wall_s']:.3f} "
+          f"s fast-forward)", flush=True)
     return stats
 
 
@@ -440,6 +520,7 @@ def main() -> int:
     for meta in KERNELS.values():
         meta["wrapper"].launches = 0
     sim = run_grids()
+    sim["sweeps"] = run_sweeps()
     errs = bench_kernels.main(device="cuda")
     torch.cuda.synchronize()
     launches = {n: m["wrapper"].launches for n, m in KERNELS.items()}

@@ -14,6 +14,16 @@ and a sha256 of the lane's ``mem_val`` image.  A test regenerates the
 file from the reference and fails on any difference; a run on the card
 is held to it bit for bit with :func:`check_lanes`.
 
+**The sweep legs** (``golden/sweeps.json``): the reference's
+``sweep(cfg, SweepRequest(...))`` on three legs (:data:`SWEEPS`, built by
+:func:`sweep_leg`): ``fig17``, the packed Fig. 17 grid (9 lanes in waves
+of 8x8 super-lanes); ``chain``, eight lanes of a scrambled 512-node
+pointer chase at 8x8 (the fast-forward engine's workload); ``deadline``,
+spmv + bfs at 2x2, 3x3 and 4x4 packed into 6x6 super-lanes with a
+deadline on the 3x3 bfs lane.  Each record holds every lane's record (as
+above) and the report's ``pack`` and ``telemetry``; :func:`check_sweep`
+holds a run to it.
+
 **Reduced serving** (``golden/serve_reduced.json``): the JAX reference's
 ``serve_batch`` greedy tokens at the reduced Phi-3.5-MoE config (2 layers,
 d 128, 4 experts top-2) with f32 parameters from :func:`serve_params_numpy`
@@ -35,6 +45,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "golden")
 GOLDEN_PATH = os.path.join(GOLDEN_DIR, "paper_grid.json")
 SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
+SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
 #: the reduced serving run: arch, traffic of examples/serve_moe.py, seed
 SERVE_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", max_new_tokens=8,
                   batch_slots=3, cache_len=128, param_seed=0)
@@ -48,6 +59,102 @@ GRIDS = {
     "grid_b": dict(workloads=["spmv", "sddmm", "bfs"], modes=["nexus"],
                    sizes=[[2, 2], [4, 4], [8, 8]]),
 }
+
+
+#: the sweep legs: ``fig17`` is the packed grid of the Fig. 17 script;
+#: ``chain`` the shape of the reference CI's fast-forward leg (8 lanes of
+#: a 512-node pointer chase at 8x8, chunk 512); ``deadline`` the packed
+#: per-size lanes of the reference's packing tests, the 3x3 bfs lane cut
+#: at 21 cycles (half of its 43, so the deadline bites).  That lane is
+#: sub-lane 0 of its 6x6 super-lane, whose uncovered PEs share its slot
+#: and keep ticking after the cut until ``max_cycles`` (a reference fault,
+#: ROADMAP.md section 3, kept bit for bit): the leg's cap of 2,048 bounds
+#: that to four chunks; every lane finishes in under 100 cycles.
+SWEEPS = {
+    "fig17": dict(pack=True),
+    "chain": dict(n_nodes=512, lanes=8, mesh=[8, 8], mem_words=8192,
+                  max_cycles=400_000, chunk=512),
+    "deadline": dict(sizes=[[2, 2], [3, 3], [4, 4]], density=0.35,
+                     super_geom=[6, 6], mem_words=1024, max_cycles=2048,
+                     deadlines={"bfs@3x3": 21}),
+}
+
+
+def sweep_leg(name: str, *, compiler, config, workloads, fig17):
+    """Build one sweep leg from a package's modules: ``compiler``,
+    ``config`` (its ``MachineConfig``), ``workloads`` (the benchmark
+    generators) and ``fig17`` (the Fig. 17 grid script) — the port's, or
+    the reference's in the test that writes the golden file.  Returns
+    ``(cfg, request_kwargs, lane_keys)``."""
+    spec = SWEEPS[name]
+    if name == "fig17":
+        lanes = fig17.build_grid(fig17._builders())
+        return (fig17._size_cfg(*fig17.SIZES[0]),
+                dict(workloads=[wl for _, _, wl in lanes],
+                     pack=spec["pack"]),
+                [f"{n}@{w}x{h}" for (w, h), n, _ in lanes])
+    if name == "chain":
+        w, h = spec["mesh"]
+        cfg = config(width=w, height=h, mem_words=spec["mem_words"],
+                     max_cycles=spec["max_cycles"])
+        rowptr, col, src = workloads.pointer_chase_graph(spec["n_nodes"])
+        wl = compiler.build_bfs(rowptr, col, src, cfg)
+        return (cfg, dict(workloads=[wl] * spec["lanes"],
+                          chunk=spec["chunk"]),
+                [f"pointer_chase/{i}" for i in range(spec["lanes"])])
+    rng = np.random.default_rng(21)
+    a = compiler.random_sparse(14, 14, spec["density"], rng)
+    x = rng.integers(-4, 5, size=(14,))
+    rp, col = workloads.small_world_graph(20, 4, 3)
+    wls, keys = [], []
+    for (w, h) in spec["sizes"]:
+        cfg = config(width=w, height=h, mem_words=spec["mem_words"],
+                     max_cycles=spec["max_cycles"])
+        wls += [compiler.build_spmv(a, x, cfg),
+                compiler.build_bfs(rp, col, 0, cfg)]
+        keys += [f"spmv@{w}x{h}", f"bfs@{w}x{h}"]
+    cfg = config(mem_words=spec["mem_words"], max_cycles=spec["max_cycles"])
+    return (cfg, dict(workloads=wls, pack=True,
+                      super_geom=tuple(spec["super_geom"]),
+                      deadlines=[spec["deadlines"].get(k) for k in keys]),
+            keys)
+
+
+def port_sweep_leg(name: str):
+    """:func:`sweep_leg` built from the port's own modules."""
+    from repro_torch.bench import fig17, workloads
+    from repro_torch.core import compiler
+    from repro_torch.core.machine import MachineConfig
+    return sweep_leg(name, compiler=compiler, config=MachineConfig,
+                     workloads=workloads, fig17=fig17)
+
+
+def sweep_record(name: str, keys: list, report) -> dict:
+    """The golden record of one sweep leg's report (reference's or
+    port's), as it reads back from JSON."""
+    return json.loads(json.dumps(dict(
+        spec=SWEEPS[name],
+        lanes={k: lane_record(r) for k, r in zip(keys, report.lanes)},
+        pack=None if report.pack is None else report.pack.to_json(),
+        telemetry=report.telemetry.to_json())))
+
+
+def load_sweep_golden(path: str = SWEEP_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_sweep(got: dict, want: dict, *, telemetry: bool = True) -> None:
+    """Raise unless a sweep record equals the golden one: every lane, the
+    packing schedule and (with ``telemetry``) the engine counters."""
+    if got["spec"] != want["spec"]:
+        raise AssertionError(f"spec {got['spec']} != {want['spec']}")
+    check_lanes(got["lanes"], want["lanes"])
+    if got["pack"] != want["pack"]:
+        raise AssertionError(f"pack {got['pack']} != golden {want['pack']}")
+    if telemetry and got["telemetry"] != want["telemetry"]:
+        raise AssertionError(f"telemetry {got['telemetry']} != golden "
+                             f"{want['telemetry']}")
 
 
 def grid_workloads(spec: dict, all_wls: list) -> list:

@@ -1,10 +1,11 @@
 """Benchmark harness on the torch engine: run every workload on every
-fabric architecture in one batched ``run_many`` call.
+fabric architecture in one batched sweep.
 
 The port of the reference's ``benchmarks/harness.py`` ``run_grid`` /
 ``build_table``: the workload axis x fabric-mode axis (Nexus / TIA /
 TIA-Valiant) x, optionally, mesh-size axis is stacked into the lanes of
-ONE :func:`repro_torch.core.machine.run_many` call, because the mode and
+ONE :func:`repro_torch.core.sweep.sweep` call (the reference's
+``run_many``, unvalidated, as there), because the mode and
 the geometry are per-lane runtime data of the engine.  Lanes are built and
 ordered exactly as in the reference, so the tables agree bit for bit.
 """
@@ -16,6 +17,7 @@ import time
 from repro_torch.bench.workloads import Workload
 from repro_torch.core import machine
 from repro_torch.core.machine import FABRIC_MODES, MachineConfig, RunResult
+from repro_torch.core.sweep import SweepRequest, sweep
 
 # Data placement per architecture: Alg. 1 (dissimilarity) is a
 # Nexus-compiler contribution the paper does not grant its baselines —
@@ -45,13 +47,15 @@ class GridLane:
 def run_grid_lanes(wls: list[Workload], modes=None, *,
                    base_cfg: MachineConfig | None = None,
                    max_cycles: int = 400_000, sizes=None,
-                   device="cuda") -> tuple[list[GridLane], float]:
+                   device="cuda", telemetry: dict | None = None
+                   ) -> tuple[list[GridLane], float]:
     """Run the (workload x mode [x size]) grid in ONE batched call.
 
     Lanes are stacked mode-major, then size-major, as in the reference.
     Returns the lanes in that order and the wall seconds of the batched
-    run (compiling the workloads excluded).  Raises if a lane did not
-    reach idle or computed a wrong result.
+    run (compiling the workloads excluded).  ``telemetry``, when given,
+    is filled with the run's :class:`EngineTelemetry` fields.  Raises if
+    a lane did not reach idle or computed a wrong result.
     """
     modes = list(FABRIC_MODES) if modes is None else list(modes)
     base_cfg = base_cfg or MachineConfig()
@@ -77,9 +81,13 @@ def run_grid_lanes(wls: list[Workload], modes=None, *,
         base_cfg, mem_words=max(wl.mem_words for wl in wls),
         max_cycles=max_cycles)
     t0 = time.time()
-    results = machine.run_many(run_cfg, built,
-                               modes=[p[0] for p in points], device=device)
+    report = sweep(run_cfg, SweepRequest(workloads=built,
+                                         modes=[p[0] for p in points],
+                                         validate="off"), device=device)
     wall = time.time() - t0
+    results = report.lanes
+    if telemetry is not None:
+        telemetry.update(report.telemetry.to_json())
     lanes = []
     for (mode, size, wl), b, res in zip(points, built, results):
         at = "" if size is None else f" @ {size[0]}x{size[1]}"

@@ -13,7 +13,11 @@ geometry ``(B, 2)`` are runtime tensors, so one engine steps a whole
 ``N_max``; PEs at index >= width*height are inactive, exactly as in the
 reference's traced-geometry engine.  Where the reference runs a
 ``lax.while_loop`` over ``lax.scan`` chunks, this port runs a Python loop
-over chunks with one host synchronisation per chunk.
+over chunks with one host synchronisation per chunk.  Sub-mesh lane
+packing (``run_many(pack=True)``, waves of super-lanes), per-lane
+deadlines and the event-compressed engine (``cfg.fast_forward``, see
+:mod:`repro_torch.core.fastforward`) are ported as in the reference;
+sharding the lane axis over several cards is not yet.
 
 Only the reference's traced engine axes are ported
 (``traced_modes=True``, ``traced_geometry=True``); the static golden
@@ -107,10 +111,11 @@ class MachineConfig:
     ``traced_geometry=False`` (the reference's static golden paths) are
     not ported and raise :class:`NotImplementedError`.
 
-    ``fast_forward`` is kept for parity with the reference config, but this
-    engine steps the plain tick loop for either value: the reference pins
-    its fast-forwarded ``RunResult`` bit-identical to the plain loop
-    (``tests/test_fast_forward.py``), so the results are the same.
+    ``fast_forward=True`` (the default) runs the event-compressed engine
+    of :mod:`repro_torch.core.fastforward`: a sub-lane whose only event
+    is one message in uncontended flight advances by the message's
+    remaining hop distance in one masked step.  ``fast_forward=False``
+    keeps the plain tick loop.  Both give the same bits.
     """
 
     width: int = 4
@@ -183,16 +188,17 @@ def init_state(cfg: MachineConfig, static_ams, amq_len, mem_val, mem_meta,
     length is taken from ``static_ams`` (padded lanes start, and stay,
     all-zero).
     """
-    static_ams = torch.as_tensor(np.asarray(static_ams, np.int32),
-                                 device=device)
+    def t(a):
+        # a copy: the cycle updates ``mem_val`` in place, and on the CPU
+        # ``as_tensor`` would share the caller's numpy memory
+        return torch.tensor(np.asarray(a, np.int32), device=device)
+
+    static_ams = t(static_ams)
     lead = tuple(static_ams.shape[:-3])
     n = int(static_ams.shape[-3])
 
     def z(*shape, dtype=torch.int32):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     return MachineState(
         buf=z(n, PORTS, DEPTH, MSG_F),
@@ -843,10 +849,22 @@ class RunResult:
 ENGINE_UNBOUNDED = np.int32(np.iinfo(np.int32).max)
 
 
-def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st):
+def unbounded_budget(batch: int, n_pes: int) -> np.ndarray:
+    """A ``(B, N)`` engine budget that never halts anything: every PE may
+    retire up to INT32_MAX cycles this call (``cfg.max_cycles`` always
+    caps first).  The budget is per PE so that a caller can bound one
+    (sub-)lane — a deadline — while its co-tenants keep stepping."""
+    return np.full((batch, n_pes), ENGINE_UNBOUNDED, np.int32)
+
+
+def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st,
+          ffwd=None):
     """One engine tick: step every lane, then freeze the cycle counters,
     round-robin pointers and statistics of PEs whose sub-lane is idle,
-    capped or out of budget (the transition itself is a no-op there)."""
+    capped or out of budget (the transition itself is a no-op there).
+    With ``ffwd`` (a :func:`repro_torch.core.fastforward.make_fast_forward`
+    function) the tick then advances every sub-lane in lone flight by its
+    message's remaining hops, bounded by the budget left."""
     spent = st.cycle - c0
     halt = spent >= budget
     alive = (~group_idle(st, sub_ids)) & (st.cycle < cfg.max_cycles) & ~halt
@@ -855,7 +873,7 @@ def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st):
     def keep(new, old):
         return torch.where(alive, new, old)
 
-    return st2._replace(
+    st2 = st2._replace(
         rr=keep(st2.rr, st.rr),
         cycle=keep(st2.cycle, st.cycle),
         st_busy=keep(st2.st_busy, st.st_busy),
@@ -865,6 +883,9 @@ def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st):
         st_hops=keep(st2.st_hops, st.st_hops),
         st_inj=keep(st2.st_inj, st.st_inj),
     )
+    if ffwd is not None:
+        st2 = ffwd(prog, modes, geoms, sub_ids, budget - spent, st, st2)
+    return st2
 
 
 def run_engine(cfg: MachineConfig, prog, modes, geoms, sub_ids, local_ids,
@@ -873,29 +894,54 @@ def run_engine(cfg: MachineConfig, prog, modes, geoms, sub_ids, local_ids,
     a lane trips the pending-FIFO guard.
 
     The loop runs ``chunk`` ticks between checks, and the check is the one
-    host synchronisation per chunk.  Returns ``(st, over, idle)`` as the
-    reference engine does (without its wall-tick telemetry): the final
-    state, the (B,) overflow flag and the (B, N) per-PE group-idle mask.
+    host synchronisation per chunk.  ``budget`` is a (B, N) bound on the
+    simulated cycles each PE may retire in this call, so running budget b
+    then b' gives the bits of one call with b + b'.  Returns ``(st, over,
+    idle, ticks)`` as the reference engine does: the final state, the (B,)
+    overflow flag, the (B, N) per-PE group-idle mask and the wall ticks
+    stepped (chunks run x ``chunk``).
+
+    With ``cfg.fast_forward`` the chunk has two speeds, as in the
+    reference: a chunk runs the compressed tick only when, at its start,
+    some live sub-lane is in lone flight.  The probe rides on the check's
+    one host synchronisation, and both speeds give the same bits, so it
+    only steers the ticks a run steps.
     """
     _require_traced(cfg)
     n_max = st.cycle.shape[1]
     cyc = _make_cycle(cfg, n_max)
+    if cfg.fast_forward:
+        from repro_torch.core.fastforward import (make_fast_forward,
+                                                  make_lone_probe)
+        ffwd = make_fast_forward(cfg, n_max)
+        lone_probe = make_lone_probe()
     cycle0 = st.cycle.clone()
     over = torch.zeros((st.cycle.shape[0],), dtype=torch.bool,
                        device=st.cycle.device)
+    chunks = 0
     while True:
-        live = (~group_idle(st, sub_ids)) & (st.cycle < cfg.max_cycles) \
-            & (st.cycle - cycle0 < budget)
-        if not bool(live.any() & ~over.any()):
+        # a lane is live while any of its PEs still advances: its
+        # sub-lane has work left, its cycle counter is below the cap and
+        # it has budget left this call.
+        room = (st.cycle < cfg.max_cycles) & (st.cycle - cycle0 < budget)
+        go = ((~group_idle(st, sub_ids)) & room).any() & ~over.any()
+        if cfg.fast_forward:
+            lone = (lone_probe(sub_ids, st) & room).any()
+            go, lone = torch.stack([go, lone]).tolist()
+        else:
+            go, lone = bool(go), False
+        if not go:
             break
+        use = ffwd if lone else None
         for _ in range(chunk):
             st = _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids,
-                       cycle0, budget, st)
+                       cycle0, budget, st, use)
         # pending-FIFO high-water check at chunk granularity; PEs frozen at
         # max_cycles are exempt.
         high = (st.pend_n >= PEND_CAP - 2) & (st.cycle < cfg.max_cycles)
         over = over | high.any(1)
-    return st, over, group_idle(st, sub_ids)
+        chunks += 1
+    return st, over, group_idle(st, sub_ids), chunks * chunk
 
 
 def _pe_slice_result(st_host: dict, done: bool, b: int,
@@ -929,15 +975,36 @@ def _host_stats(st: MachineState) -> dict:
     return {k: getattr(st, k).cpu().numpy() for k in names}
 
 
-_NOT_PORTED = ("run_many({}) is not ported yet (ROADMAP.md, Queue 1 "
-               "item {})")
+def _validate_deadlines(deadlines, n: int) -> list:
+    """Normalize a per-lane deadline sequence: length n, entries None or
+    a positive cycle count (int32 range)."""
+    dls = list(deadlines)
+    if len(dls) != n:
+        raise ValueError(f"{len(dls)} deadlines for {n} lanes")
+    out = []
+    for i, d in enumerate(dls):
+        if d is None:
+            out.append(None)
+            continue
+        d = int(d)
+        if not 0 < d <= int(ENGINE_UNBOUNDED):
+            raise ValueError(f"deadline[{i}]={d}: expected a positive "
+                             "int32 cycle count (or None)")
+        out.append(d)
+    return out
 
 
-def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
-             chunk: int = 512, pack: bool = False, shard: bool = False,
-             deadlines=None, cycle_hints=None,
-             device="cuda") -> list[RunResult]:
+def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
+                   chunk: int = 512, pack: bool = False,
+                   super_geom=None, pack_stats: dict | None = None,
+                   shard: bool = False, cycle_hints=None,
+                   shard_stats: dict | None = None,
+                   telemetry: dict | None = None,
+                   deadlines=None, device="cuda") -> list[RunResult]:
     """Simulate B workloads in one batched run on ``device``.
+
+    The plumbing behind :func:`run_many` and
+    :func:`repro_torch.core.sweep.sweep`, as in the reference.
 
     Args:
       cfg: shared machine parameters.  ``mem_words`` is widened
@@ -952,10 +1019,35 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
       geoms: optional per-lane ``(width, height)`` pairs.  Defaults to the
         batch's own ``geoms``, else ``cfg``'s mesh.
       chunk: ticks between the engine's idle checks.
+      pack: co-schedule small lanes as disjoint sub-meshes of shared
+        super-lanes (:func:`repro_torch.core.batch.pack_schedule`), in a
+        few sequential waves on the same engine.  Needs compiled
+        workloads (each records its mesh); results come back one per
+        input workload, in input order, bit-identical to solo runs.
+        Every packed batch is certified rectangle-confined
+        (:func:`repro_torch.analysis.checks.check_packed_batch`) before
+        any cycle runs.
+      super_geom: optional ``(width, height)`` of the packing mesh
+        (default: the batch's widest x tallest lane).
+      pack_stats: optional dict that ``pack=True`` fills with the
+        schedule's ``n_waves`` / ``n_super_lanes`` /
+        ``packing_efficiency`` / ``unpacked_efficiency`` / ``plan``.
+      shard: lane-axis sharding over several cards; not ported yet
+        (raises :class:`NotImplementedError`).
+      cycle_hints: optional per-input-lane cycle counts replacing the
+        static cost model in the wave planner (``pack=True``).
+      shard_stats: optional dict filled with the one-card plan
+        (``n_devices`` 1, no pad lanes).
+      telemetry: optional dict accumulating, over every engine call of the
+        run (one per wave), ``stepped_pe_ticks`` (PE-steps the engine
+        stepped), ``plain_pe_ticks`` (what the plain engine steps for the
+        same final cycle counts, rounded up to the chunk) and
+        ``engine_calls``.
+      deadlines: optional per-input-lane cycle deadlines (None entries =
+        unbounded).  A lane makes no state transition past its deadline
+        and comes back frozen there with ``completed=False``; co-tenant
+        sub-lanes and other lanes are unaffected (the budget is per PE).
       device: where the state lives and the engine runs.
-
-    ``pack``, ``shard``, ``deadlines`` and ``cycle_hints`` are not ported
-    yet and raise :class:`NotImplementedError`.
 
     Returns:
       One :class:`RunResult` per lane, in input order, bit-identical to the
@@ -963,17 +1055,100 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
       idle returns ``completed=False``.
 
     Raises:
-      RuntimeError: if any lane trips the pending-FIFO overflow guard.
+      RuntimeError: if any lane trips the pending-FIFO overflow guard; its
+        ``lanes`` attribute names the lanes (input lanes under ``pack``).
     """
-    from repro_torch.core.batch import BatchedWorkloads, stack_workloads
-    if pack:
-        raise NotImplementedError(_NOT_PORTED.format("pack=True", 4))
-    if deadlines is not None:
-        raise NotImplementedError(_NOT_PORTED.format("deadlines=", 4))
+    from repro_torch.core.batch import (BatchedWorkloads, pack_schedule,
+                                        stack_workloads, validate_hints)
     if shard:
-        raise NotImplementedError(_NOT_PORTED.format("shard=True", 6))
-    if cycle_hints is not None:
-        raise NotImplementedError(_NOT_PORTED.format("cycle_hints=", 6))
+        raise NotImplementedError("run_many(shard=True) is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 6)")
+    if pack:
+        if isinstance(workloads, BatchedWorkloads):
+            raise ValueError(
+                "pack=True needs the raw sequence of compiled workloads; "
+                "this batch is already stacked (packing re-bases lanes "
+                "into super-meshes, which stacking discards)")
+        if not (cfg.traced_geometry and cfg.traced_modes):
+            raise ValueError("pack=True requires the traced engine axes "
+                             "(cfg.traced_geometry and cfg.traced_modes)")
+        if geoms is not None:
+            raise ValueError("pack=True places lanes itself; per-lane "
+                             "geoms cannot be overridden")
+        wls = list(workloads)
+        if deadlines is not None:
+            deadlines = _validate_deadlines(deadlines, len(wls))
+        if cycle_hints is not None:
+            cycle_hints = validate_hints(cycle_hints, len(wls))
+        else:
+            # no measured hints: the static cost model supplies the
+            # planner's load signal (hints steer scheduling only).
+            from repro_torch.core.batch import static_cycle_hints
+            cycle_hints = static_cycle_hints(wls)
+        batches, waves, stats = pack_schedule(wls, modes=modes,
+                                              super_geom=super_geom,
+                                              cycle_hints=cycle_hints)
+        # certify rectangle confinement before any cycle runs: no rebased
+        # AM or meta_pe word may target a PE outside its own sub-lane.
+        from repro_torch.analysis.checks import (check_packed_batch,
+                                                 raise_on_findings)
+        for wb in batches:
+            raise_on_findings(
+                check_packed_batch(wb),
+                context="packed batch failed rectangle-confinement "
+                        "certification")
+        if pack_stats is not None:
+            pack_stats.update(stats)
+        results: list = [None] * len(wls)
+        wave_shard_stats: list[dict] = []
+        for wb, wave in zip(batches, waves):
+            hints_w = None
+            if cycle_hints is not None:
+                # a super-lane runs for its slowest co-tenant
+                hints_w = [0.0] * wb.batch
+                for p in wb.plan.placements:
+                    hints_w[p.super_lane] = max(
+                        hints_w[p.super_lane],
+                        float(cycle_hints[wave[p.lane]]))
+            # per-wave deadlines, in the wave's own lane order; the inner
+            # (packed) call maps them onto sub-lane PE rows
+            dls_w = (None if deadlines is None
+                     else [deadlines[i] for i in wave])
+            ws: dict | None = {} if shard_stats is not None else None
+            try:
+                wave_res = _run_many_impl(cfg, wb, chunk=chunk,
+                                          cycle_hints=hints_w,
+                                          shard_stats=ws,
+                                          telemetry=telemetry,
+                                          deadlines=dls_w, device=device)
+            except RuntimeError as e:
+                supers = getattr(e, "lanes", None)
+                if supers is None:
+                    raise
+                # translate the failing super-lanes into input workloads
+                culprits = sorted(
+                    wave[p.lane] for p in wb.plan.placements
+                    if p.super_lane in supers)
+                err = RuntimeError(
+                    "pending-FIFO overflow: consumption guarantee "
+                    "violated (simulator invariant; packed input lanes "
+                    f"{culprits})")
+                err.lanes = culprits
+                raise err from e
+            if ws is not None:
+                wave_shard_stats.append(ws)
+            for i, r in zip(wave, wave_res):
+                results[i] = r
+        if shard_stats is not None:
+            # aggregated over waves, as in the reference
+            shard_stats.update(
+                n_devices=max(w["n_devices"] for w in wave_shard_stats),
+                lanes_per_device=max(w["lanes_per_device"]
+                                     for w in wave_shard_stats),
+                n_pad_lanes=sum(w["n_pad_lanes"]
+                                for w in wave_shard_stats),
+                plan=[w["plan"] for w in wave_shard_stats])
+        return results
     _require_traced(cfg)
     if not isinstance(workloads, BatchedWorkloads):
         workloads = stack_workloads(list(workloads), geoms=geoms)
@@ -1008,29 +1183,120 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
             raise ValueError(f"{lane_modes.shape[0]} modes for "
                              f"{workloads.batch} lanes")
 
+    if workloads.sub_ids is not None:
+        sub_ids = np.asarray(workloads.sub_ids, np.int32)
+        local_ids = np.asarray(workloads.local_ids, np.int32)
+    else:
+        sub_ids = np.zeros((workloads.batch, n_max), np.int32)
+        local_ids = np.tile(np.arange(n_max, dtype=np.int32),
+                            (workloads.batch, 1))
+    if cycle_hints is not None:
+        validate_hints(cycle_hints, workloads.batch)
+
+    # --- per-PE cycle budget (deadlines) ------------------------------
+    # INT32_MAX everywhere by default, a lane's own deadline on its rows
+    # otherwise; a packed batch maps each deadline onto its sub-lane
+    # rectangle, so a frozen sub-lane never stalls its co-tenants.
+    budget = unbounded_budget(workloads.batch, n_max)
+    if deadlines is not None:
+        if workloads.plan is not None:
+            deadlines = _validate_deadlines(
+                deadlines, len(workloads.plan.placements))
+            for sub in workloads.plan.placements:
+                dl = deadlines[sub.lane]
+                if dl is not None:
+                    w_sup = workloads.plan.super_geoms[sub.super_lane][0]
+                    budget[sub.super_lane, sub.pe_ids(w_sup)] = dl
+        else:
+            deadlines = _validate_deadlines(deadlines, workloads.batch)
+            for b, dl in enumerate(deadlines):
+                if dl is not None:
+                    budget[b, :] = dl
+    if shard_stats is not None:
+        shard_stats.update(n_devices=1, lanes_per_device=workloads.batch,
+                           n_pad_lanes=0,
+                           plan=[list(range(workloads.batch))])
+
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    sub_ids = t(np.zeros((workloads.batch, n_max), np.int32))
-    local_ids = t(np.tile(np.arange(n_max, dtype=np.int32),
-                          (workloads.batch, 1)))
-    budget = t(np.full((workloads.batch, n_max), ENGINE_UNBOUNDED, np.int32))
     st = init_state(cfg, workloads.static_ams, workloads.amq_len,
                     workloads.mem_val, workloads.mem_meta, device=device)
-    st, over, idle = run_engine(cfg, t(workloads.prog), t(lane_modes),
-                                   t(lane_geoms), sub_ids, local_ids, st,
-                                   budget, chunk=chunk)
+    st, over, idle, ticks = run_engine(
+        cfg, t(workloads.prog), t(lane_modes), t(lane_geoms), t(sub_ids),
+        t(local_ids), st, t(budget), chunk=chunk)
+    host = _host_stats(st)
+    if telemetry is not None:
+        # PE-steps stepped vs what the plain tick-per-cycle engine steps
+        # to reach the same final cycle counts (chunk granularity).
+        bsz = workloads.batch
+        want = int(host["cycle"].max())
+        telemetry["stepped_pe_ticks"] = (
+            telemetry.get("stepped_pe_ticks", 0) + ticks * bsz * n_max)
+        telemetry["plain_pe_ticks"] = (
+            telemetry.get("plain_pe_ticks", 0)
+            + -(-want // chunk) * chunk * bsz * n_max)
+        telemetry["engine_calls"] = telemetry.get("engine_calls", 0) + 1
     over = over.cpu().numpy()
-    idle = idle.cpu().numpy()
+    idle = idle.cpu().numpy()                    # (B, N) per-PE group idle
     if over.any():
         bad = np.nonzero(over)[0].tolist()
-        raise RuntimeError("pending-FIFO overflow: consumption guarantee "
+        err = RuntimeError("pending-FIFO overflow: consumption guarantee "
                            f"violated (simulator invariant; lanes {bad})")
-    host = _host_stats(st)
+        err.lanes = bad  # structured, so pack=True can name input lanes
+        raise err
+    if workloads.plan is not None:
+        # un-pack: one result per original lane, from its sub-mesh
+        # rectangle (plan order is input order by construction).
+        out = []
+        for sub in workloads.plan.placements:
+            w_sup = workloads.plan.super_geoms[sub.super_lane][0]
+            ids = sub.pe_ids(w_sup)
+            out.append(_pe_slice_result(
+                host, bool(idle[sub.super_lane, ids[0]]),
+                sub.super_lane, ids))
+        return out
     return [_pe_slice_result(
         host, bool(idle[b, 0]), b,
         np.arange(int(lane_geoms[b, 0] * lane_geoms[b, 1])))
             for b in range(workloads.batch)]
+
+
+def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
+             chunk: int = 512, pack: bool = False,
+             super_geom=None, pack_stats: dict | None = None,
+             shard: bool = False, cycle_hints=None,
+             shard_stats: dict | None = None,
+             deadlines=None, device="cuda") -> list[RunResult]:
+    """Simulate B workloads in one batched run on ``device``.
+
+    See :func:`_run_many_impl` for the argument contract.  Prefer the
+    structured surface, :class:`repro_torch.core.sweep.SweepRequest` in,
+    :class:`repro_torch.core.sweep.SweepReport` out::
+
+        from repro_torch.core.sweep import SweepRequest, sweep
+        report = sweep(cfg, SweepRequest(workloads=wls, pack=True))
+
+    The out-param dicts ``pack_stats=`` / ``shard_stats=`` are deprecated
+    in favour of ``SweepReport.pack`` / ``SweepReport.shard``: passing
+    either emits a :class:`DeprecationWarning` (both surfaces call the
+    same implementation, so the results are the same bits).
+    ``shard=True`` is not ported yet and raises
+    :class:`NotImplementedError`.
+    """
+    if pack_stats is not None or shard_stats is not None:
+        import warnings
+        warnings.warn(
+            "run_many(pack_stats=..., shard_stats=...) out-param dicts are "
+            "deprecated; use repro_torch.core.sweep.sweep(cfg, "
+            "SweepRequest(...)) and read SweepReport.pack / "
+            "SweepReport.shard instead",
+            DeprecationWarning, stacklevel=2)
+    return _run_many_impl(cfg, workloads, modes=modes, geoms=geoms,
+                          chunk=chunk, pack=pack, super_geom=super_geom,
+                          pack_stats=pack_stats, shard=shard,
+                          cycle_hints=cycle_hints, shard_stats=shard_stats,
+                          deadlines=deadlines, device=device)
 
 
 def run(cfg: MachineConfig, prog: np.ndarray, static_ams: np.ndarray,

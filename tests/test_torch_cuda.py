@@ -394,3 +394,47 @@ def test_cuda_f32_kernels_do_not_round_to_tf32(cuda_device):
         got = bcsr_spmm(a, b, split=split)
         np.testing.assert_allclose(got.cpu().numpy(), a64 @ b64, rtol=0,
                                    atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fast_forward_matches_plain(cuda_device):
+    """The simulator on the card: the 64-node pointer chase at 8x8
+    (chunk 64) gives the same bits on the fast-forward and the plain
+    engine and on the CPU, and the fast-forward skips PE-steps."""
+    import dataclasses
+
+    from repro_torch.bench.workloads import pointer_chase_graph
+    from repro_torch.core import compiler
+    from repro_torch.core.machine import MachineConfig
+    from repro_torch.core.sweep import SweepRequest, sweep
+    cfg = MachineConfig(width=8, height=8, mem_words=2048,
+                        max_cycles=100_000)
+    rowptr, col, src = pointer_chase_graph(64)
+    req = SweepRequest(workloads=[compiler.build_bfs(rowptr, col, src, cfg)],
+                       chunk=64)
+    ff = sweep(cfg, req, device=cuda_device)
+    plain = sweep(dataclasses.replace(cfg, fast_forward=False), req,
+                  device=cuda_device)
+    cpu = sweep(cfg, req, device="cpu")
+
+    def sig(r):
+        return (r.to_json(), np.asarray(r.stall_per_port).tolist(),
+                np.asarray(r.mem_val).tolist())
+
+    assert sig(ff[0]) == sig(plain[0]) == sig(cpu[0])
+    assert ff[0].completed
+    assert ff.telemetry == cpu.telemetry
+    assert ff.telemetry.dead_step_fraction > 0.2
+    assert plain.telemetry.dead_step_fraction == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_packed_deadline_sweep_matches_golden(cuda_device):
+    """The packed deadline leg of ``sweeps.json`` on the card: every lane,
+    the packing schedule and the telemetry equal the reference's."""
+    from repro_torch.bench import golden
+    from repro_torch.core.sweep import SweepRequest, sweep
+    cfg, kw, keys = golden.port_sweep_leg("deadline")
+    report = sweep(cfg, SweepRequest(**kw), device=cuda_device)
+    golden.check_sweep(golden.sweep_record("deadline", keys, report),
+                       golden.load_sweep_golden()["deadline"])

@@ -1,9 +1,9 @@
-"""The golden file the card run is held to (``paper_grid.json``): it must
-be exactly what the JAX reference gives today, and the port's engine must
-meet it.
+"""The golden files the card run is held to (``paper_grid.json``,
+``sweeps.json``): they must be exactly what the JAX reference gives
+today, and the port's engine must meet them.
 
-Regenerate ``src/repro_torch/golden/paper_grid.json`` from the reference
-with::
+Regenerate ``src/repro_torch/golden/paper_grid.json`` and
+``src/repro_torch/golden/sweeps.json`` from the reference with::
 
     PYTHONPATH=src:. python tests/test_torch_golden.py
 """
@@ -13,8 +13,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from benchmarks import fig17_scaling as ref_fig17  # noqa: E402
 from benchmarks import harness as ref_harness  # noqa: E402
+from benchmarks import workloads as ref_workloads  # noqa: E402
 from benchmarks.workloads import make_all as ref_make_all  # noqa: E402
+from repro.core import compiler as ref_compiler  # noqa: E402
+from repro.core.machine import MachineConfig as RefConfig  # noqa: E402
+from repro.core.sweep import SweepRequest as RefRequest  # noqa: E402
+from repro.core.sweep import sweep as ref_sweep  # noqa: E402
 
 from repro_torch.bench import golden, harness  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
@@ -38,6 +44,15 @@ def reference_golden(name: str) -> dict:
                        for k, r in zip(keys, report.lanes)})
 
 
+def reference_sweep(name: str) -> dict:
+    """Run one sweep leg through the JAX reference and return its golden
+    record (one top-level entry of ``sweeps.json``)."""
+    cfg, kw, keys = golden.sweep_leg(
+        name, compiler=ref_compiler, config=RefConfig,
+        workloads=ref_workloads, fig17=ref_fig17)
+    return golden.sweep_record(name, keys, ref_sweep(cfg, RefRequest(**kw)))
+
+
 @pytest.mark.parametrize("name", list(golden.GRIDS))
 def test_golden_file_matches_reference(name):
     """(e) the committed golden records of each grid are exactly what the
@@ -50,6 +65,38 @@ def test_golden_file_matches_reference(name):
     assert got["max_cycles"] == want[name]["max_cycles"]
     golden.check_lanes(got["lanes"], want[name]["lanes"])
     assert len(want[name]["lanes"]) == N_LANES[name]
+
+
+@pytest.mark.parametrize("name", list(golden.SWEEPS))
+def test_sweep_golden_matches_reference(name):
+    """The committed sweep records (lanes, packing schedule, engine
+    telemetry) are exactly what the reference's ``sweep`` gives today."""
+    want = golden.load_sweep_golden()
+    assert list(want) == list(golden.SWEEPS)
+    golden.check_sweep(reference_sweep(name), want[name])
+
+
+def test_sweep_golden_shapes():
+    """The legs hold what the card run promises: the packed Fig. 17 grid
+    in 4 waves of one 8x8 super-lane at 0.984375 efficiency, the chain's
+    fast-forward skipping half the plain PE-steps, and the deadline
+    freezing its lane (only) at its bound."""
+    want = golden.load_sweep_golden()
+    fig = want["fig17"]
+    assert len(fig["lanes"]) == 9
+    assert (fig["pack"]["n_waves"], fig["pack"]["n_super_lanes"]) == (4, 4)
+    assert fig["pack"]["packing_efficiency"] == 0.984375
+    chain = want["chain"]
+    assert len(chain["lanes"]) == 8
+    assert chain["telemetry"]["stepped_pe_ticks"] == 1_048_576
+    assert chain["telemetry"]["plain_pe_ticks"] == 2_097_152
+    assert chain["telemetry"]["dead_step_fraction"] == 0.5
+    dl = want["deadline"]
+    for key, rec in dl["lanes"].items():
+        cut = golden.SWEEPS["deadline"]["deadlines"].get(key)
+        assert rec["completed"] == (cut is None), key
+        if cut is not None:
+            assert rec["cycles"] == cut
 
 
 def test_port_grid_matches_golden_small_lanes():
@@ -73,3 +120,8 @@ if __name__ == "__main__":
                   indent=1)
         f.write("\n")
     print("wrote", golden.GOLDEN_PATH)
+    with open(golden.SWEEP_GOLDEN_PATH, "w") as f:
+        json.dump({name: reference_sweep(name) for name in golden.SWEEPS},
+                  f, indent=1)
+        f.write("\n")
+    print("wrote", golden.SWEEP_GOLDEN_PATH)

@@ -36,7 +36,11 @@ def test_imports_pull_in_no_jax_and_no_reference():
     for m in ("repro_torch.kernels.group_matmul", "repro_torch.models.lm",
               "repro_torch.models.moe", "repro_torch.sparse.dispatch",
               "repro_torch.launch.serve", "repro_torch.serve.steps",
-              "repro_torch.configs.phi35_moe_42b"):
+              "repro_torch.configs.phi35_moe_42b",
+              "repro_torch.core.fastforward", "repro_torch.core.sweep",
+              "repro_torch.analysis", "repro_torch.analysis.checks",
+              "repro_torch.analysis.cost", "repro_torch.analysis.ir",
+              "repro_torch.analysis.lint", "repro_torch.bench.fig17"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -92,7 +96,9 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.models.layers.rope_freqs",
               "repro_torch.models.lm.make_caches",
               "repro_torch.launch.serve.serve_batch",
-              "repro_torch.core.machine.run_many"):
+              "repro_torch.core.machine.run_many",
+              "repro_torch.core.sweep.sweep",
+              "repro_torch.bench.fig17.run_grid_report"):
         assert f in seen, f
 
 

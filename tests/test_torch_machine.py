@@ -157,10 +157,14 @@ def test_run_is_a_one_lane_run_many():
     assert solo.to_json() == both[0].to_json()
 
 
-@pytest.mark.parametrize("kw", [dict(pack=True), dict(shard=True),
-                                dict(deadlines=[None]),
-                                dict(cycle_hints=[1.0])])
+@pytest.mark.parametrize("kw", [dict(shard=True, pack=True),
+                                dict(shard=True),
+                                dict(shard=True, deadlines=[None]),
+                                dict(shard=True, cycle_hints=[1.0])])
 def test_unported_options_raise(kw):
+    """``shard=True`` is the one option not ported yet: it raises alone
+    and beside the ported ``pack`` / ``deadlines`` / ``cycle_hints``
+    (tests/test_torch_sweep.py holds those to the reference)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.run_many(port.MachineConfig(), [], device="cpu", **kw)
 
