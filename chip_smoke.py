@@ -25,7 +25,20 @@ Phases (any failure raises and the script exits non-zero):
    super-lanes), the 512-node pointer chase (8 lanes at 8x8) on the
    fast-forward and on the plain engine, and a packed leg with a
    per-lane deadline; each prints its wall, engine ticks, lane-cycles/s,
-   dead-step fraction, waves, packing efficiency and peak memory;
+   dead-step fraction, waves, packing efficiency and peak memory.  After
+   the ``[sweep]`` legs, the ``[service]`` phase drives the resident
+   sweep service (``repro_torch.serve.SweepService``) on the card: the
+   chaos soak of ``repro_torch.bench.chaos_soak`` (seed 5: the
+   ``fig17_traffic(copies=2)`` lanes at chunk 8 with seeded transients
+   and a scheduler kill, a deadline lane cut at half its cycles,
+   duplicates, a checkpoint every 2 slices, then a restore from the
+   middle checkpoint that finishes the in-flight lanes) and one clean
+   ``serve_bench.soak`` round of the same traffic; every survivor,
+   duplicate and restored lane must equal its record in
+   ``src/repro_torch/golden/service.json`` bit for bit, the deadline
+   lane must freeze exactly at its bound with the reference's frozen
+   record, both a transient and a kill must have fired, and the clean
+   soak must have run on one cached engine;
 4. the serving path, launch counts again from 0: Phi-3.5-MoE at full
    width (d 4096, 32/8 heads of 128, 16 experts top-2 of 6400, vocab
    32064), depth cut to 4 layers, bf16 parameters from a seeded
@@ -76,6 +89,7 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness  # noqa: E402
+from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
 from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
@@ -287,6 +301,54 @@ def run_sweeps() -> dict:
           f"({chain_plain['wall_s']:.3f} s plain, {chain_ff['wall_s']:.3f} "
           f"s fast-forward)", flush=True)
     return stats
+
+
+def run_service() -> dict:
+    """The ``[service]`` phase: the chaos soak (with its restore) and one
+    clean soak round of the service traffic on the card, held to
+    ``service.json``."""
+    want = golden.load_service_golden()
+    keys = list(want["lanes"])
+    t0 = time.time()
+    chaos = chaos_soak.run(5, golden=want, device="cuda", verbose=False)
+    chaos_s = time.time() - t0
+    if chaos["failures"]:
+        raise AssertionError(f"chaos soak: {chaos['failures']}")
+    kinds = {k for _, _, k in chaos["fired"]}
+    if not {"transient", "kill"} <= kinds:
+        raise AssertionError(f"chaos soak fired {chaos['fired']}")
+    if chaos["restored_lanes"] == 0:
+        raise AssertionError("the restore finished no in-flight lane")
+    cfg, lanes = serve_bench.fig17_traffic(golden.SERVICE["copies"])
+    rounds: list = []
+    t0 = time.time()
+    clean = serve_bench.soak(cfg, lanes, rounds=1, slice_chunks=1,
+                             device="cuda", results=rounds)
+    clean_s = time.time() - t0
+    if clean["drift"]:
+        raise AssertionError(f"clean soak: {clean['drift']}")
+    if clean["engine_cache_size"] != 1:
+        raise AssertionError(f"clean soak used "
+                             f"{clean['engine_cache_size']} engines")
+    golden.check_lanes({keys[i]: golden.lane_record(r)
+                        for i, r in sorted(rounds[0].items())},
+                       want["lanes"])
+    row = dict(
+        lanes=len(lanes),
+        chaos=dict((k, chaos[k]) for k in (
+            "n_slices", "engine_ticks", "n_retries", "n_restarts",
+            "n_checkpoints", "refill_occupancy", "dead_step_fraction",
+            "fired", "deadline_lane", "deadline_cycles", "restored_lanes",
+            "restored_from_step", "reference_s", "soak_s", "restore_s")),
+        chaos_wall_s=chaos_s,
+        clean=dict((k, clean[k]) for k in (
+            "n_slices", "engine_ticks", "n_refills", "refill_occupancy",
+            "dead_step_fraction", "engine_cache_size", "service_wall_s")),
+        clean_wall_s=clean_s)
+    print(f"[service] {len(lanes)} lanes of fig17_traffic(copies=2): the "
+          "chaos soak, its restore and the clean soak match the golden "
+          f"records; {json.dumps(row)}", flush=True)
+    return row
 
 
 def plain_grouped(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -521,6 +583,7 @@ def main() -> int:
         meta["wrapper"].launches = 0
     sim = run_grids()
     sim["sweeps"] = run_sweeps()
+    sim["service"] = run_service()
     errs = bench_kernels.main(device="cuda")
     torch.cuda.synchronize()
     launches = {n: m["wrapper"].launches for n, m in KERNELS.items()}

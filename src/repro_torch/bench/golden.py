@@ -24,6 +24,15 @@ deadline on the 3x3 bfs lane.  Each record holds every lane's record (as
 above) and the report's ``pack`` and ``telemetry``; :func:`check_sweep`
 holds a run to it.
 
+**The sweep service** (``golden/service.json``): the reference's one-shot
+``run_many`` records of the ``fig17_traffic(copies=2)`` lanes
+(:data:`SERVICE`; ``repro_torch.bench.serve_bench.fig17_traffic``, the
+Fig. 17 sizes x the reference CI's small SpMV and BFS, two copies), and
+its ``run_many(..., deadlines=[d])`` record of the chaos soak's deadline
+lane (the longest lane, cut at half its cycles), built by
+:func:`service_record`.  The card's chaos soak and clean soak are held to
+it.
+
 **Reduced serving** (``golden/serve_reduced.json``): the JAX reference's
 ``serve_batch`` greedy tokens at the reduced Phi-3.5-MoE config (2 layers,
 d 128, 4 experts top-2) with f32 parameters from :func:`serve_params_numpy`
@@ -46,6 +55,9 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 GOLDEN_PATH = os.path.join(GOLDEN_DIR, "paper_grid.json")
 SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
 SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
+SERVICE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "service.json")
+#: the service legs' traffic: ``fig17_traffic(copies=2)``
+SERVICE = dict(traffic="fig17", copies=2)
 #: the reduced serving run: arch, traffic of examples/serve_moe.py, seed
 SERVE_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", max_new_tokens=8,
                   batch_slots=3, cache_len=128, param_seed=0)
@@ -155,6 +167,34 @@ def check_sweep(got: dict, want: dict, *, telemetry: bool = True) -> None:
     if telemetry and got["telemetry"] != want["telemetry"]:
         raise AssertionError(f"telemetry {got['telemetry']} != golden "
                              f"{want['telemetry']}")
+
+
+def service_lane_keys(sizes, copies: int = SERVICE["copies"]) -> list:
+    """The lane keys of ``fig17_traffic(copies)`` in its lane order:
+    every copy, every mesh size, ``bfs`` then ``spmv``."""
+    return [f"{name}@{w}x{h}/{c}" for c in range(copies)
+            for (w, h) in sizes for name in ("bfs", "spmv")]
+
+
+def service_record(run_many, cfg, lanes, keys) -> dict:
+    """The golden record of the service traffic from a package's
+    ``run_many`` (the reference's, or the port's bound to a device):
+    every lane's one-shot record, and the deadline lane (the longest,
+    cut at half its cycles, as the chaos soak picks it) run alone with
+    ``deadlines=[d]``."""
+    results = run_many(cfg, lanes)
+    dl_lane = max(range(len(results)), key=lambda i: results[i].cycles)
+    d = max(1, results[dl_lane].cycles // 2)
+    (frozen,) = run_many(cfg, [lanes[dl_lane]], deadlines=[d])
+    return json.loads(json.dumps(dict(
+        spec=SERVICE,
+        lanes={k: lane_record(r) for k, r in zip(keys, results)},
+        deadline=dict(lane=dl_lane, cycles=d, record=lane_record(frozen)))))
+
+
+def load_service_golden(path: str = SERVICE_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
 
 
 def grid_workloads(spec: dict, all_wls: list) -> list:

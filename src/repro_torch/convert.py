@@ -29,8 +29,12 @@ def state_from_numpy(leaves: dict, device="cuda") -> MachineState:
 
 
 def state_to_numpy(st: MachineState) -> dict:
-    """A :class:`MachineState` -> ``{field: ndarray}`` on the host."""
-    return {k: getattr(st, k).cpu().numpy() for k in MachineState._fields}
+    """A :class:`MachineState` -> ``{field: ndarray}`` on the host, as
+    copies: the next engine call updates ``pend``, ``swq`` and ``mem_val``
+    in place, and on the CPU a bare ``.numpy()`` would share their
+    memory."""
+    return {k: getattr(st, k).to("cpu", copy=True).numpy()
+            for k in MachineState._fields}
 
 
 def batch_from_numpy(fields: dict) -> BatchedWorkloads:

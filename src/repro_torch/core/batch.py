@@ -1,6 +1,6 @@
 """Batch padding / stacking helpers for :func:`repro_torch.core.machine.run_many`.
 
-A copy of the reference's ``repro_torch.core.batch``: the padding helpers and
+A copy of the reference's ``repro.core.batch``: the padding helpers and
 the packing, wave and shard planners.
 
 The paper's headline results are design-space sweeps (Figs. 11–17): many
@@ -68,8 +68,9 @@ credit that matters.  The engine only needs per-sub-lane *accounting*
 Multi-device lane sharding
 --------------------------
 Lanes are embarrassingly parallel, so the reference's ``run_many(...,
-shard=True)`` splits the lane axis over its devices; the port's engine
-does not shard yet (ROADMAP.md, Queue 1 item 6), but keeps the planner.
+shard=True)`` splits the lane axis over its devices; the port runs
+``shard=True`` on one device (the plain engine) and does not split the
+lane axis over several yet (ROADMAP.md, Queue 1), but keeps the planner.
 :func:`plan_shards` balances lanes across devices by the same runtime
 estimate the wave planner uses (:func:`shard_loads`: mesh area without
 an oracle, measured ``cycle_hints`` with one) and pads the batch to a

@@ -16,8 +16,9 @@ reference's traced-geometry engine.  Where the reference runs a
 over chunks with one host synchronisation per chunk.  Sub-mesh lane
 packing (``run_many(pack=True)``, waves of super-lanes), per-lane
 deadlines and the event-compressed engine (``cfg.fast_forward``, see
-:mod:`repro_torch.core.fastforward`) are ported as in the reference;
-sharding the lane axis over several cards is not yet.
+:mod:`repro_torch.core.fastforward`) are ported as in the reference, and
+so is ``shard=True`` on one device; splitting the lane axis over several
+cards is not yet.
 
 Only the reference's traced engine axes are ported
 (``traced_modes=True``, ``traced_geometry=True``); the static golden
@@ -888,60 +889,140 @@ def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st,
     return st2
 
 
-def run_engine(cfg: MachineConfig, prog, modes, geoms, sub_ids, local_ids,
-               st: MachineState, budget, *, chunk: int = 512):
-    """Step the batch until every lane is idle, capped or out of budget, or
-    a lane trips the pending-FIFO guard.
+# Engines keyed like the reference's ``_ENGINE_CACHE``: the traced axes
+# (mode flags, width x height) are folded out of the config, so lanes that
+# differ only in mode or mesh size share one entry.  An entry holds the
+# cycle and fast-forward closures, built once; torch compiles nothing, so
+# the cache saves only their construction, but it keeps the reference's
+# contract that a blocking ``run_many`` and a sweep service over the same
+# arena run one engine.
+_ENGINE_CACHE: dict = {}
 
-    The loop runs ``chunk`` ticks between checks, and the check is the one
-    host synchronisation per chunk.  ``budget`` is a (B, N) bound on the
-    simulated cycles each PE may retire in this call, so running budget b
-    then b' gives the bits of one call with b + b'.  Returns ``(st, over,
-    idle, ticks)`` as the reference engine does: the final state, the (B,)
-    overflow flag, the (B, N) per-PE group-idle mask and the wall ticks
-    stepped (chunks run x ``chunk``).
+
+def _engine_key_cfg(cfg: MachineConfig) -> MachineConfig:
+    """``cfg`` with the traced axes folded out (the engine reads the mode
+    and the mesh per lane at run time)."""
+    if cfg.traced_modes:
+        cfg = dataclasses.replace(cfg, opportunistic=True, dual_issue=True,
+                                  valiant=False)
+    if cfg.traced_geometry:
+        cfg = dataclasses.replace(cfg, width=0, height=0)
+    return cfg
+
+
+def _engine_key(cfg: MachineConfig, n_max: int, chunk: int,
+                n_devices: int = 1) -> tuple:
+    """The full engine-cache key (the reference's, exposed for tests)."""
+    return (_engine_key_cfg(cfg), int(n_max), chunk, int(n_devices),
+            PEND_CAP, STREAM_THROTTLE)
+
+
+def clear_engine_cache() -> None:
+    """Drop every cached engine."""
+    _ENGINE_CACHE.clear()
+
+
+def engine_cache_size() -> int:
+    return len(_ENGINE_CACHE)
+
+
+def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
+                n_devices: int = 1):
+    """The cached batched runner ``engine(prog, modes, geoms, sub_ids,
+    local_ids, st, budget) -> (st, over, idle, ticks)``.
+
+    ``prog`` is (B, P, CFG_F), ``modes`` (B,), ``geoms`` (B, 2),
+    ``sub_ids`` / ``local_ids`` (B, N) and ``budget`` a (B, N) bound on
+    the simulated cycles each PE may retire in this call, all int32
+    tensors on the state's device.  The loop runs ``chunk`` ticks between
+    checks, and the check is the one host synchronisation per chunk.
+    Running budget b then b' gives the bits of one call with b + b'.
+    Returns the final state (the input state's queues and memory are
+    updated in place), the (B,) overflow flag, the (B, N) per-PE
+    group-idle mask and the (B,) int32 wall ticks stepped (chunks run x
+    ``chunk``), as the reference engine does.
 
     With ``cfg.fast_forward`` the chunk has two speeds, as in the
     reference: a chunk runs the compressed tick only when, at its start,
     some live sub-lane is in lone flight.  The probe rides on the check's
     one host synchronisation, and both speeds give the same bits, so it
     only steers the ticks a run steps.
+
+    ``n_devices`` > 1 (the lane axis split over several cards) is not
+    ported yet (ROADMAP.md, Queue 1, the multi-device lane split).
     """
     _require_traced(cfg)
-    n_max = st.cycle.shape[1]
+    if n_max is None:
+        n_max = cfg.n_pes
+    if n_devices > 1:
+        raise NotImplementedError(
+            f"an engine over {n_devices} devices is not ported yet "
+            "(ROADMAP.md, Queue 1: the multi-device lane split)")
+    key = _engine_key(cfg, n_max, chunk, n_devices)
+    engine = _ENGINE_CACHE.get(key)
+    if engine is not None:
+        return engine
     cyc = _make_cycle(cfg, n_max)
+    ffwd = lone_probe = None
     if cfg.fast_forward:
         from repro_torch.core.fastforward import (make_fast_forward,
                                                   make_lone_probe)
         ffwd = make_fast_forward(cfg, n_max)
         lone_probe = make_lone_probe()
-    cycle0 = st.cycle.clone()
-    over = torch.zeros((st.cycle.shape[0],), dtype=torch.bool,
-                       device=st.cycle.device)
-    chunks = 0
-    while True:
-        # a lane is live while any of its PEs still advances: its
-        # sub-lane has work left, its cycle counter is below the cap and
-        # it has budget left this call.
-        room = (st.cycle < cfg.max_cycles) & (st.cycle - cycle0 < budget)
-        go = ((~group_idle(st, sub_ids)) & room).any() & ~over.any()
-        if cfg.fast_forward:
-            lone = (lone_probe(sub_ids, st) & room).any()
-            go, lone = torch.stack([go, lone]).tolist()
-        else:
-            go, lone = bool(go), False
-        if not go:
-            break
-        use = ffwd if lone else None
-        for _ in range(chunk):
-            st = _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids,
-                       cycle0, budget, st, use)
-        # pending-FIFO high-water check at chunk granularity; PEs frozen at
-        # max_cycles are exempt.
-        high = (st.pend_n >= PEND_CAP - 2) & (st.cycle < cfg.max_cycles)
-        over = over | high.any(1)
-        chunks += 1
-    return st, over, group_idle(st, sub_ids), chunks * chunk
+
+    def engine(prog, modes, geoms, sub_ids, local_ids, st: MachineState,
+               budget):
+        cycle0 = st.cycle.clone()
+        bsz = st.cycle.shape[0]
+        over = torch.zeros((bsz,), dtype=torch.bool, device=st.cycle.device)
+        chunks = 0
+        while True:
+            # a lane is live while any of its PEs still advances: its
+            # sub-lane has work left, its cycle counter is below the cap
+            # and it has budget left this call.
+            room = (st.cycle < cfg.max_cycles) & (st.cycle - cycle0 < budget)
+            go = ((~group_idle(st, sub_ids)) & room).any() & ~over.any()
+            if ffwd is not None:
+                lone = (lone_probe(sub_ids, st) & room).any()
+                go, lone = torch.stack([go, lone]).tolist()
+            else:
+                go, lone = bool(go), False
+            if not go:
+                break
+            use = ffwd if lone else None
+            for _ in range(chunk):
+                st = _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids,
+                           cycle0, budget, st, use)
+            # pending-FIFO high-water check at chunk granularity; PEs
+            # frozen at max_cycles are exempt.
+            high = (st.pend_n >= PEND_CAP - 2) & (st.cycle < cfg.max_cycles)
+            over = over | high.any(1)
+            chunks += 1
+        ticks = torch.full((bsz,), chunks * chunk, dtype=torch.int32,
+                           device=st.cycle.device)
+        return st, over, group_idle(st, sub_ids), ticks
+
+    _ENGINE_CACHE[key] = engine
+    return engine
+
+
+def run_engine(cfg: MachineConfig, prog, modes, geoms, sub_ids, local_ids,
+               st: MachineState, budget, *, chunk: int = 512):
+    """Step the batch until every lane is idle, capped or out of budget, or
+    a lane trips the pending-FIFO guard: one call of the cached engine
+    (:func:`_get_engine`) for ``cfg``, ``chunk`` and the state's PE axis.
+    Returns ``(st, over, idle, ticks)`` with ``ticks`` a (B,) int32
+    tensor."""
+    engine = _get_engine(cfg, chunk, n_max=st.cycle.shape[1])
+    return engine(prog, modes, geoms, sub_ids, local_ids, st, budget)
+
+
+def device_count(device) -> int:
+    """Cards a lane axis on ``device`` may be split over: every visible
+    CUDA device for a CUDA device, 1 for the CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
 
 
 def _pe_slice_result(st_host: dict, done: bool, b: int,
@@ -969,10 +1050,12 @@ def _pe_slice_result(st_host: dict, done: bool, b: int,
 
 
 def _host_stats(st: MachineState) -> dict:
-    """Pull the result-bearing state leaves to host numpy once."""
+    """Pull the result-bearing state leaves to host numpy once, as copies:
+    the next engine call updates ``mem_val`` in place, and on the CPU a
+    bare ``.numpy()`` would share its memory."""
     names = ("cycle", "st_busy", "st_exec", "st_enroute", "st_hops",
              "st_inj", "st_stall", "mem_val")
-    return {k: getattr(st, k).cpu().numpy() for k in names}
+    return {k: getattr(st, k).to("cpu", copy=True).numpy() for k in names}
 
 
 def _validate_deadlines(deadlines, n: int) -> list:
@@ -1032,12 +1115,16 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
       pack_stats: optional dict that ``pack=True`` fills with the
         schedule's ``n_waves`` / ``n_super_lanes`` /
         ``packing_efficiency`` / ``unpacked_efficiency`` / ``plan``.
-      shard: lane-axis sharding over several cards; not ported yet
-        (raises :class:`NotImplementedError`).
+      shard: split the lane axis over the cards of ``device``'s type
+        (``torch.cuda.device_count()`` for a CUDA device, 1 for the
+        CPU), capped at the batch size.  On one device this is the plain
+        engine through the same cache entry, as in the reference; over
+        several it is not ported yet (ROADMAP.md, Queue 1) and
+        raises :class:`NotImplementedError`.
       cycle_hints: optional per-input-lane cycle counts replacing the
         static cost model in the wave planner (``pack=True``).
-      shard_stats: optional dict filled with the one-card plan
-        (``n_devices`` 1, no pad lanes).
+      shard_stats: optional dict filled with the device plan
+        (``n_devices``, ``lanes_per_device``, ``n_pad_lanes``, ``plan``).
       telemetry: optional dict accumulating, over every engine call of the
         run (one per wave), ``stepped_pe_ticks`` (PE-steps the engine
         stepped), ``plain_pe_ticks`` (what the plain engine steps for the
@@ -1060,9 +1147,6 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
     """
     from repro_torch.core.batch import (BatchedWorkloads, pack_schedule,
                                         stack_workloads, validate_hints)
-    if shard:
-        raise NotImplementedError("run_many(shard=True) is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 6)")
     if pack:
         if isinstance(workloads, BatchedWorkloads):
             raise ValueError(
@@ -1116,7 +1200,7 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                      else [deadlines[i] for i in wave])
             ws: dict | None = {} if shard_stats is not None else None
             try:
-                wave_res = _run_many_impl(cfg, wb, chunk=chunk,
+                wave_res = _run_many_impl(cfg, wb, chunk=chunk, shard=shard,
                                           cycle_hints=hints_w,
                                           shard_stats=ws,
                                           telemetry=telemetry,
@@ -1151,7 +1235,14 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         return results
     _require_traced(cfg)
     if not isinstance(workloads, BatchedWorkloads):
-        workloads = stack_workloads(list(workloads), geoms=geoms)
+        workloads = list(workloads)
+        if cycle_hints is None and shard:
+            # the shard balancer's load signal, from the static cost
+            # model, as in the reference (validated below)
+            from repro_torch.core.batch import static_cycle_hints
+            cycle_hints = static_cycle_hints(workloads, geoms,
+                                             homogeneous=True)
+        workloads = stack_workloads(workloads, geoms=geoms)
         geoms = None        # now carried on the batch
     n_max = workloads.n_pes
     if geoms is None:
@@ -1212,6 +1303,15 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
             for b, dl in enumerate(deadlines):
                 if dl is not None:
                     budget[b, :] = dl
+    # --- lane-axis device sharding ------------------------------------
+    # One device (or shard off): the plain engine, the same cache entry.
+    # The device count is capped at the batch size, as in the reference.
+    n_dev = min(device_count(device), workloads.batch) if shard else 1
+    if n_dev > 1:
+        raise NotImplementedError(
+            f"run_many(shard=True) over {n_dev} devices is not ported yet "
+            "(ROADMAP.md, Queue 1: the multi-device lane split); "
+            "on one device it runs the plain engine")
     if shard_stats is not None:
         shard_stats.update(n_devices=1, lanes_per_device=workloads.batch,
                            n_pad_lanes=0,
@@ -1222,9 +1322,10 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
 
     st = init_state(cfg, workloads.static_ams, workloads.amq_len,
                     workloads.mem_val, workloads.mem_meta, device=device)
-    st, over, idle, ticks = run_engine(
-        cfg, t(workloads.prog), t(lane_modes), t(lane_geoms), t(sub_ids),
-        t(local_ids), st, t(budget), chunk=chunk)
+    engine = _get_engine(cfg, chunk, n_max)
+    st, over, idle, ticks = engine(
+        t(workloads.prog), t(lane_modes), t(lane_geoms), t(sub_ids),
+        t(local_ids), st, t(budget))
     host = _host_stats(st)
     if telemetry is not None:
         # PE-steps stepped vs what the plain tick-per-cycle engine steps
@@ -1232,7 +1333,8 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         bsz = workloads.batch
         want = int(host["cycle"].max())
         telemetry["stepped_pe_ticks"] = (
-            telemetry.get("stepped_pe_ticks", 0) + ticks * bsz * n_max)
+            telemetry.get("stepped_pe_ticks", 0)
+            + int(ticks[0]) * bsz * n_max)
         telemetry["plain_pe_ticks"] = (
             telemetry.get("plain_pe_ticks", 0)
             + -(-want // chunk) * chunk * bsz * n_max)
@@ -1281,8 +1383,6 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
     in favour of ``SweepReport.pack`` / ``SweepReport.shard``: passing
     either emits a :class:`DeprecationWarning` (both surfaces call the
     same implementation, so the results are the same bits).
-    ``shard=True`` is not ported yet and raises
-    :class:`NotImplementedError`.
     """
     if pack_stats is not None or shard_stats is not None:
         import warnings

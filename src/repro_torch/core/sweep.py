@@ -14,8 +14,10 @@ out — a port of the reference's ``repro.core.sweep``.
   (:func:`repro_torch.core.machine._run_many_impl`), so the two give the
   same bits.
 
-``shard=True`` is not ported yet (ROADMAP.md, Queue 1 item 6) and raises
-:class:`NotImplementedError`.
+``shard=True`` runs on one device, the plain engine through the same
+cache entry, and reports the one-device plan in ``SweepReport.shard``;
+splitting the lane axis over several cards is not ported yet (ROADMAP.md,
+Queue 1) and raises :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ class SweepRequest:
       surface.
     * ``pack`` / ``super_geom`` — sub-mesh lane packing into shared
       super-lanes (``geoms`` must then be None: the packer places lanes).
-    * ``shard`` — lane-axis sharding over several cards (not ported
-      yet: the sweep raises :class:`NotImplementedError`).
+    * ``shard`` — lane-axis sharding over the cards of the sweep's
+      device type (one device: the plain engine; several: not ported
+      yet, :class:`NotImplementedError`).
     * ``chunk`` — engine ticks between the engine's idle checks.
     * ``validate`` — pre-dispatch static verification tier
       (:mod:`repro_torch.analysis`): ``"static"`` (default) rejects lanes with

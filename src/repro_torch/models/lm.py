@@ -10,7 +10,8 @@ normals drawn in f32 and cast to the model dtype (bf16 unless asked),
 norms and the router in f32.
 
 The other families raise ``NotImplementedError``: xLSTM, Mamba-2 hybrid,
-MLA, audio and vision wait for their slice (ROADMAP Queue 1 item 10).
+MLA, audio and vision wait for their slice (ROADMAP.md, Queue 1, the
+other model families).
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ def _check_supported(cfg: ArchConfig) -> None:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {what} family is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+            "(ROADMAP.md, Queue 1, the other model families)")
 
 
 # ---------------------------------------------------------------------------

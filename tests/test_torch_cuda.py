@@ -438,3 +438,17 @@ def test_cuda_packed_deadline_sweep_matches_golden(cuda_device):
     report = sweep(cfg, SweepRequest(**kw), device=cuda_device)
     golden.check_sweep(golden.sweep_record("deadline", keys, report),
                        golden.load_sweep_golden()["deadline"])
+
+
+@pytest.mark.cuda
+def test_cuda_service_soak_matches_golden(cuda_device):
+    """The sweep service on the card: the chaos soak of the
+    ``fig17_traffic(copies=2)`` lanes (seeded transients and a kill, a
+    deadline lane, duplicates, checkpoints, a restore from the middle
+    checkpoint) equals ``service.json`` bit for bit."""
+    from repro_torch.bench import chaos_soak, golden
+    rec = chaos_soak.run(5, golden=golden.load_service_golden(),
+                         device=cuda_device, verbose=False)
+    assert rec["failures"] == []
+    assert {k for _, _, k in rec["fired"]} == {"transient", "kill"}
+    assert rec["restored_lanes"] > 0

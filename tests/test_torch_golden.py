@@ -1,28 +1,33 @@
 """The golden files the card run is held to (``paper_grid.json``,
-``sweeps.json``): they must be exactly what the JAX reference gives
-today, and the port's engine must meet them.
+``sweeps.json``, ``service.json``): they must be exactly what the JAX
+reference gives today, and the port's engine must meet them.
 
-Regenerate ``src/repro_torch/golden/paper_grid.json`` and
-``src/repro_torch/golden/sweeps.json`` from the reference with::
+Regenerate ``src/repro_torch/golden/paper_grid.json``,
+``src/repro_torch/golden/sweeps.json`` and
+``src/repro_torch/golden/service.json`` from the reference with::
 
     PYTHONPATH=src:. python tests/test_torch_golden.py
 """
 import json
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from benchmarks import fig17_scaling as ref_fig17  # noqa: E402
 from benchmarks import harness as ref_harness  # noqa: E402
+from benchmarks import serve_bench as ref_serve_bench  # noqa: E402
 from benchmarks import workloads as ref_workloads  # noqa: E402
 from benchmarks.workloads import make_all as ref_make_all  # noqa: E402
 from repro.core import compiler as ref_compiler  # noqa: E402
+from repro.core import machine as ref_machine  # noqa: E402
 from repro.core.machine import MachineConfig as RefConfig  # noqa: E402
 from repro.core.sweep import SweepRequest as RefRequest  # noqa: E402
 from repro.core.sweep import sweep as ref_sweep  # noqa: E402
 
-from repro_torch.bench import golden, harness  # noqa: E402
+from repro_torch.bench import fig17, golden, harness  # noqa: E402
+from repro_torch.bench import serve_bench  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
 
 N_LANES = {"grid_a": 39, "grid_b": 9}
@@ -51,6 +56,15 @@ def reference_sweep(name: str) -> dict:
         name, compiler=ref_compiler, config=RefConfig,
         workloads=ref_workloads, fig17=ref_fig17)
     return golden.sweep_record(name, keys, ref_sweep(cfg, RefRequest(**kw)))
+
+
+def reference_service() -> dict:
+    """The service traffic through the JAX reference's ``run_many``: the
+    whole of ``service.json``."""
+    cfg, lanes = ref_serve_bench.fig17_traffic(golden.SERVICE["copies"])
+    return golden.service_record(
+        ref_machine.run_many, cfg, lanes,
+        golden.service_lane_keys(fig17.SIZES))
 
 
 @pytest.mark.parametrize("name", list(golden.GRIDS))
@@ -99,6 +113,29 @@ def test_sweep_golden_shapes():
             assert rec["cycles"] == cut
 
 
+def test_service_golden_matches_reference():
+    """``service.json`` is exactly what the reference's one-shot
+    ``run_many`` gives today on the service traffic (12 lanes, 2x2 to
+    8x8), with the deadline lane's frozen record; the port's traffic is
+    the reference's, array for array."""
+    want = golden.load_service_golden()
+    got = reference_service()
+    assert got["spec"] == want["spec"]
+    golden.check_lanes(got["lanes"], want["lanes"])
+    assert got["deadline"] == want["deadline"]
+    assert len(want["lanes"]) == 12
+    frozen = want["deadline"]["record"]
+    assert frozen["cycles"] == want["deadline"]["cycles"]
+    assert not frozen["completed"]
+    _, ref_lanes = ref_serve_bench.fig17_traffic(golden.SERVICE["copies"])
+    _, lanes = serve_bench.fig17_traffic(golden.SERVICE["copies"])
+    for a, b in zip(lanes, ref_lanes):
+        assert tuple(a.geom) == tuple(b.geom)
+        for f in ("prog", "static_ams", "amq_len", "mem_val", "mem_meta"):
+            np.testing.assert_array_equal(getattr(a, f),
+                                          np.asarray(getattr(b, f)))
+
+
 def test_port_grid_matches_golden_small_lanes():
     """The port's engine on the CPU against the golden records, on the
     grid B lanes that finish quickly (the card run checks every lane)."""
@@ -125,3 +162,7 @@ if __name__ == "__main__":
                   f, indent=1)
         f.write("\n")
     print("wrote", golden.SWEEP_GOLDEN_PATH)
+    with open(golden.SERVICE_GOLDEN_PATH, "w") as f:
+        json.dump(reference_service(), f, indent=1)
+        f.write("\n")
+    print("wrote", golden.SERVICE_GOLDEN_PATH)

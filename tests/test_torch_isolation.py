@@ -40,7 +40,11 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.core.fastforward", "repro_torch.core.sweep",
               "repro_torch.analysis", "repro_torch.analysis.checks",
               "repro_torch.analysis.cost", "repro_torch.analysis.ir",
-              "repro_torch.analysis.lint", "repro_torch.bench.fig17"):
+              "repro_torch.analysis.lint", "repro_torch.bench.fig17",
+              "repro_torch.serve.fabric", "repro_torch.serve.chaos",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+              "repro_torch.bench.serve_bench",
+              "repro_torch.bench.chaos_soak"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -159,14 +159,47 @@ def test_run_is_a_one_lane_run_many():
 
 @pytest.mark.parametrize("kw", [dict(shard=True, pack=True),
                                 dict(shard=True),
-                                dict(shard=True, deadlines=[None]),
-                                dict(shard=True, cycle_hints=[1.0])])
+                                dict(shard=True, deadlines=[None, 11, None]),
+                                dict(shard=True,
+                                     cycle_hints=[1.0, 30.0, 2.0])])
 def test_unported_options_raise(kw):
-    """``shard=True`` is the one option not ported yet: it raises alone
-    and beside the ported ``pack`` / ``deadlines`` / ``cycle_hints``
-    (tests/test_torch_sweep.py holds those to the reference)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.run_many(port.MachineConfig(), [], device="cpu", **kw)
+    """``shard=True`` on one device (the CPU here; one card on a
+    single-card host), alone and beside ``pack`` / ``deadlines`` /
+    ``cycle_hints``: the plain engine through the same cache entry, the
+    reference's lanes bit for bit and its one-device ``ShardStats`` in
+    the report.  (Once the one option that raised; only the split over
+    several devices still does, see tests/test_torch_sweep.py.)"""
+    from repro.core import compiler as ref_compiler
+    from repro.core.sweep import SweepRequest as RefRequest
+    from repro.core.sweep import sweep as ref_sweep
+
+    from repro_torch.core import compiler
+    from repro_torch.core.sweep import SweepRequest, sweep
+    rng = np.random.default_rng(9)
+    wls, wls_ref = [], []
+    for n in (2, 3, 4):
+        a = ref_compiler.random_sparse(6, 6, 0.4, rng)
+        x = rng.integers(-3, 4, size=(6,))
+        kw_cfg = dict(width=n, height=n, mem_words=1024, max_cycles=2048)
+        wls_ref.append(ref_compiler.build_spmv(a, x,
+                                               ref.MachineConfig(**kw_cfg)))
+        wls.append(compiler.build_spmv(a, x, port.MachineConfig(**kw_cfg)))
+    cfg = dict(mem_words=1024, max_cycles=2048)
+    port.clear_engine_cache()
+    got = sweep(port.MachineConfig(**cfg),
+                SweepRequest(workloads=wls, chunk=32, **kw), device="cpu")
+    want = ref_sweep(ref.MachineConfig(**cfg),
+                     RefRequest(workloads=wls_ref, chunk=32, **kw))
+    assert got.shard is not None and got.shard.n_devices == 1
+    assert got.to_json() == want.to_json()
+    for r, w in zip(got, want):
+        np.testing.assert_array_equal(r.mem_val, np.asarray(w.mem_val))
+    # the same engine entry as the unsharded call (one per wave size)
+    plain = port.run_many(port.MachineConfig(**cfg), wls, chunk=32,
+                          device="cpu", **{k: v for k, v in kw.items()
+                                           if k != "shard"})
+    assert [r.to_json() for r in plain] == [r.to_json() for r in got]
+    assert port.engine_cache_size() == 1
 
 
 @pytest.mark.parametrize("flag", ["traced_modes", "traced_geometry"])
