@@ -49,24 +49,50 @@ Phases (any failure raises and the script exits non-zero):
    the prefill logits must be finite, ``group_matmul`` must have been
    launched, and its outputs in the first prefill's and first decode
    step's three expert products of layer 0 must agree with the plain
-   version (rtol = atol = 2e-2);
+   version (rtol = atol = 2e-2, and max |err| within 2e-2 of the plain
+   product's max |value|);
 5. the reduced Phi-3.5-MoE (2 layers, d 128, 4 experts) served with f32
    parameters on the card, its greedy tokens held to the reference's in
    ``src/repro_torch/golden/serve_reduced.json`` up to each request's
    first token won by a top-2 logit margin under 1e-3;
-6. time each kernel and its plain version with CUDA events over
+6. the training path (``[train]``), after the serving parameters are
+   freed, through ``repro_torch.launch.train.train`` on the card, each
+   leg with the launch counts from 0: Phi-3.5-MoE at full width, depth
+   cut to 2 layers, bf16 parameters from a generator seeded with 0, 6
+   AdamW steps of ``train()``'s default traffic (batch 8, seq 128, lr
+   3e-4) on the synthetic Zipf stream; every loss must be finite, the
+   last two losses' mean under the first two's, ``group_matmul`` launched
+   3 times a layer a step forward and 3 times for the backward's dx, and
+   layer 0's three forward products and three dx products of the second
+   step must agree with the plain version (rtol = atol = 2e-2, and max
+   |err| within 2e-2 of the plain product's max |value|, since the dx of
+   a mean loss is orders of magnitude below 2e-2); then the reduced
+   Phi-3.5-MoE in f32 held to the reference's losses, aux losses and
+   gradient norms in ``src/repro_torch/golden/train_reduced.json`` (rtol
+   ``golden.TRAIN_RTOL``, 1e-5, the CPU tests'), the same run with TF32
+   products read against that limit (not held), and again with a
+   checkpoint every 2 steps and a failure at step 5, whose restart must
+   end on the clean run's loss (rtol 1e-5); then the 100M example's
+   model (``repro-100m``) for 30 steps (batch 4, seq 128, lr 1e-3), its
+   last three losses' mean under the first three's (the full-width and
+   100M legs are ``repro_torch.bench.profile_train.LEGS``);
+7. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
-   with CUDA events over back-to-back calls (median of 21 each), at the
+   with CUDA events over back-to-back calls (median of 21 each; fewer at
+   the training shapes, whose plain version takes tens of ms), at the
    f32 legs' shapes and, for ``group_matmul``, also at the serving
-   path's decode and prefill shapes; compute each kernel's bound from the
-   bytes and FLOPs its data needs, its share of that bound
-   (``bound_share``) and its time over the library call's
-   (``vs_library``);
-7. print the kernels line (a row per leg with the legs' launches,
-   ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, and a
+   path's decode and prefill shapes and the training path's forward and
+   dx shapes; compute each kernel's bound from the bytes and FLOPs its
+   data needs, its share of that bound (``bound_share``) and its time
+   over the library call's (``vs_library``);
+8. print the kernels line (a row per leg with the legs' launches,
+   ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at the decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
-   path's launches), the card line and, last, the ok line.
+   path's launches, and ``group_matmul_train`` / ``group_matmul_train_dx``
+   rows at the training leg's ``wg`` shapes, with ``wo`` in each, with the
+   training path's forward and dx launches), the card line and, last, the
+   ok line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
 is not available.
@@ -79,6 +105,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +118,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
+from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
 from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -99,13 +127,18 @@ from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
 from repro_torch.kernels.group_matmul import tile_by_expert  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as trainer  # noqa: E402
+from repro_torch.launch.train_100m import tokens_per_s  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.serve.steps import make_prefill_step  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 FLOP/s outside
-# the tensor cores (the kernels run plain f32 FMA; bf16 inputs are widened)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
+# tensor cores and dense bf16 FLOP/s on them.  A bound takes the peak of
+# the inputs' type (the kernels run plain f32 FMA and widen bf16 inputs,
+# so for bf16 the bound is the card's, not the kernel's design's)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 #: the full-width serving run: Phi-3.5-MoE, depth cut 32 -> 4 layers (the
 #: 41.9 B parameters are 83.7 GB in bf16, more than the card's 80 GB)
 SERVE_LAYERS = 4
@@ -113,6 +146,18 @@ SERVE_TRAFFIC = dict(max_new_tokens=8, batch_slots=3, cache_len=128)
 #: serves of that traffic in one run (one pass is ~1.5 s, too short to
 #: read the speed from once): their median and spread are reported
 SERVE_REPEATS = 5
+#: the full-width training run (Phi-3.5-MoE, depth cut 32 -> 2 layers)
+#: and the 100M example's model, with their traffic: the legs that
+#: ``repro_torch.bench.profile_train`` profiles
+TRAIN_CFG, TRAIN_TRAFFIC = TRAIN_LEGS["moe"]
+DENSE_CFG, DENSE_TRAFFIC = TRAIN_LEGS["dense"]
+#: the step of the training run whose layer-0 expert products are held to
+#: the plain version (the second)
+TRAIN_RECORD_STEP = 1
+#: the bf16 tolerance of a recorded expert product against its plain
+#: version: elementwise (rtol = atol) and, since a backward's dx is many
+#: orders of magnitude below 1, also max |err| over max |plain|
+BF16_TOL = 2e-2
 KERNELS = {
     "bcsr_spmm": dict(wrapper=bcsr_spmm,
                       source="src/repro_torch/csrc/bcsr_spmm.cu",
@@ -161,6 +206,15 @@ def time_ms(fn, reps: int = 21, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bound(nbytes: int, flops: int, dtype) -> dict:
+    """The least time the card could take: bytes over HBM's rate against
+    FLOPs over the peak of ``dtype``."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def library_call(name: str, args: dict):
@@ -360,20 +414,62 @@ def plain_grouped(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(e, -1, w.shape[2])[:, :c]
 
 
+def check_expert(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Holds a recorded expert product (or its dx) to its plain version in
+    bf16: elementwise within :data:`BF16_TOL`, and max |got - want| within
+    :data:`BF16_TOL` of max |want| (a check that zeros or noise of the
+    product's own size fail, however small the product); returns the
+    max |err|, max |want| and their ratio."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel = err / scale if scale else float(err > 0)
+    if not torch.allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL) or \
+            not rel <= BF16_TOL:
+        raise AssertionError(f"group_matmul ({name}): max |err| {err} "
+                             f"against max |plain| {scale}")
+    return dict(max_abs_err=err, max_abs_want=scale, rel_err=rel)
+
+
+class _Tap(torch.autograd.Function):
+    """Identity whose backward hands the gradient passing through it to
+    ``sink`` (the dx the expert product's backward computed)."""
+
+    @staticmethod
+    def forward(ctx, x, sink):
+        ctx.sink = sink
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.sink["dx"] = g.detach().clone()
+        return g, None
+
+
 class ExpertCalls:
-    """Records the operands and output of chosen ``grouped_expert_matmul``
-    calls of ``moe_apply`` (by call index), while the call itself runs as
-    it would."""
+    """Counts the ``grouped_expert_matmul`` calls of ``moe_apply`` (one
+    kernel launch each in the forward) and records chosen calls (by call
+    index): their operands and output and, where autograd records the
+    call (training), their cotangent ``dy``, the ``dx`` their backward
+    returned and a copy of the weights the optimizer then updates in
+    place, while the calls run as they would."""
 
     def __init__(self, keep):
         self.keep, self.n, self.calls = set(keep), 0, {}
         self.inner = moe.grouped_expert_matmul
 
     def __call__(self, xe, w, **kw):
-        out = self.inner(xe, w, **kw)
-        if self.n in self.keep:
-            self.calls[self.n] = (xe.clone(), w, out.clone())
-        self.n += 1
+        n, self.n = self.n, self.n + 1
+        if n not in self.keep:
+            return self.inner(xe, w, **kw)
+        grad = torch.is_grad_enabled() and xe.requires_grad
+        rec = dict(xe=xe.detach().clone(),
+                   w=w.detach().clone() if grad else w)
+        out = self.inner(_Tap.apply(xe, rec) if grad else xe, w, **kw)
+        rec["out"] = out.detach().clone()
+        if grad:
+            out.register_hook(
+                lambda g: rec.__setitem__("dy", g.detach().clone()))
+        self.calls[n] = rec
         return out
 
 
@@ -432,16 +528,13 @@ def run_serve() -> tuple[dict, dict]:
         raise AssertionError(f"prefill tokens {first} differ from the "
                              "first served tokens")
     # the kernel against its plain version on the path's own operands
-    errs = {}
-    for n, (xe, w, got) in sorted(rec.calls.items()):
-        want = plain_grouped(xe, w)
+    errs, rel = {}, {}
+    for n, r in sorted(rec.calls.items()):
         name = ("prefill" if n < per_fwd else "decode") + \
             f"_{['wg', 'wi', 'wo'][n % 3]}"
-        if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
-            raise AssertionError(f"group_matmul on the serving path ({name})"
-                                 f": max |err| "
-                                 f"{(got - want).abs().max().item()}")
-        errs[name] = (got - want).abs().max().item()
+        got = check_expert(f"serving path, {name}", r["out"],
+                           plain_grouped(r["xe"], r["w"]))
+        errs[name], rel[name] = got["max_abs_err"], got["rel_err"]
     if len(errs) != 6:
         raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
     speed = {}
@@ -456,7 +549,7 @@ def run_serve() -> tuple[dict, dict]:
         requests=len(reqs), tokens=res.tokens_generated,
         serves=SERVE_REPEATS, **speed, group_matmul_launches=launches,
         launches_per_serve=launches / SERVE_REPEATS,
-        peak_mem_bytes=peak, max_abs_err=errs,
+        peak_mem_bytes=peak, max_abs_err=errs, rel_err=rel,
         outputs=[o.tolist() for o in res.outputs])
     print(f"[serve] {json.dumps(stats)}", flush=True)
     return stats, rec.calls
@@ -481,6 +574,220 @@ def run_reduced_serve() -> int:
     return compared
 
 
+def run_train_moe() -> tuple[dict, dict]:
+    """Phi-3.5-MoE at full width, depth cut as in :data:`TRAIN_CFG`,
+    trained :data:`TRAIN_TRAFFIC` steps through ``train()`` on the card,
+    every launch count from 0; returns the stats and layer 0's recorded
+    expert products of step :data:`TRAIN_RECORD_STEP`."""
+    cfg = TRAIN_CFG
+    per_step = 3 * cfg.n_layers          # expert products a forward
+    first = per_step * TRAIN_RECORD_STEP
+    rec = ExpertCalls([first, first + 1, first + 2])
+    moe.grouped_expert_matmul = rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for meta in KERNELS.values():
+        meta["wrapper"].launches = 0
+    try:
+        res = trainer.train(cfg, reduced=False, device="cuda", log_every=1,
+                            **TRAIN_TRAFFIC)
+        torch.cuda.synchronize()
+    finally:
+        moe.grouped_expert_matmul = rec.inner
+    launches = group_matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_TRAFFIC["steps"]
+    losses = res.losses
+    if res.restarts or res.steps_done != steps or len(losses) != steps:
+        raise AssertionError(f"training ran {res.steps_done} steps with "
+                             f"{res.restarts} restarts: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    forward = rec.n
+    if forward != per_step * steps or launches != 2 * forward:
+        raise AssertionError(
+            f"group_matmul launched {launches} times for {forward} expert "
+            f"products in {steps} steps (want {per_step} forward and "
+            f"{per_step} dx launches a step)")
+    errs, held = {}, {}
+    for n, r in sorted(rec.calls.items()):
+        tag = ["wg", "wi", "wo"][n % 3]
+        if "dy" not in r or "dx" not in r:
+            raise AssertionError(f"no gradient reached the {tag} product")
+        w = r["w"]
+        checks = {
+            f"forward_{tag}": (r["out"], plain_grouped(r["xe"], w)),
+            f"dx_{tag}": (r["dx"].float(), plain_grouped(
+                r["dy"].to(w.dtype), w.transpose(1, 2).contiguous()))}
+        for name, (got, want) in checks.items():
+            held[name] = check_expert(f"training path, {name}", got, want)
+            errs[name] = held[name]["max_abs_err"]
+    if len(errs) != 6:
+        raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
+    steady = res.step_s[1:]
+    tokens = TRAIN_TRAFFIC["batch"] * TRAIN_TRAFFIC["seq"]
+    ms = statistics.median(steady) * 1e3
+    stats = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_experts=cfg.moe.n_experts, d_expert=cfg.moe.d_expert,
+        vocab=cfg.vocab, params=cfg.param_count(), **TRAIN_TRAFFIC,
+        tokens_per_step=tokens, step_ms=dict(
+            median=ms, min=min(steady) * 1e3, max=max(steady) * 1e3,
+            first=res.step_s[0] * 1e3, runs=[t * 1e3 for t in res.step_s]),
+        tokens_per_s=tokens / (ms / 1e3), peak_mem_bytes=peak,
+        losses=losses, aux_losses=res.aux_losses,
+        grad_norms=res.grad_norms, group_matmul_launches=launches,
+        launches_forward=forward, launches_dx=launches - forward,
+        launches_per_step=launches / steps, max_abs_err=errs,
+        held_to_plain=held)
+    print(f"[train] moe {json.dumps(stats)}", flush=True)
+    return stats, rec.calls
+
+
+class RouterMargins:
+    """Wraps ``moe_apply`` to log, per call, the smallest gap between a
+    token's neighbouring router probabilities among its top k + 1 (the
+    margin by which its expert choice and order were won)."""
+
+    def __init__(self):
+        self.inner, self.margins = moe.moe_apply, []
+
+    def __call__(self, p, x, cfg, **kw):
+        with torch.no_grad():
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"], dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            gaps = top[:, :cfg.top_k] - top[:, 1:cfg.top_k + 1]
+            self.margins.append(gaps.min().item())
+        return self.inner(p, x, cfg, **kw)
+
+
+def run_train_reduced() -> dict:
+    """The reduced Phi-3.5-MoE in f32 through ``train()``, held to the
+    reference's golden record; then the same run with a checkpoint every
+    2 steps and a failure at step 5, which must end on the clean run's
+    loss."""
+    spec = golden.TRAIN_SPEC
+    cfg = configs.get_arch(spec["arch"]).reduced()
+    params = params_from_numpy(
+        golden.serve_params_numpy(cfg, spec["param_seed"]), cfg, "cuda")
+    kw = dict(steps=spec["steps"], batch=spec["batch"], seq=spec["seq"],
+              lr=spec["lr"], device="cuda", params=params, log_every=0)
+    margins = RouterMargins()
+    moe.moe_apply = margins
+    try:
+        clean = trainer.train(spec["arch"], **kw)
+    finally:
+        moe.moe_apply = margins.inner
+    per_step = [min(margins.margins[i:i + cfg.n_layers]) for i in
+                range(0, len(margins.margins), cfg.n_layers)]
+    want = golden.load_train_golden()
+    try:
+        rel = golden.check_train(clean.losses, clean.aux_losses,
+                                 clean.grad_norms, want)
+    except AssertionError as e:
+        raise AssertionError(f"{e}; smallest router top-2 margin a step "
+                             f"{per_step}") from e
+    # the same run with TF32 products: how far it lands from the record,
+    # against golden.TRAIN_RTOL (read, not held: it says whether the limit
+    # sees a lost 13 bits of every f32 product's inputs)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = trainer.train(spec["arch"], **kw)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    tf32_rel = golden.train_rel_errs(tf32.losses, tf32.aux_losses,
+                                     tf32.grad_norms, want)
+    with tempfile.TemporaryDirectory() as d:
+        failed = trainer.train(spec["arch"], ckpt_dir=d, save_every=2,
+                               fail_at_step=5, **kw)
+    if failed.restarts != 1 or failed.steps_done != spec["steps"]:
+        raise AssertionError(f"recovery: {failed.restarts} restarts, "
+                             f"{failed.steps_done} steps")
+    if not np.isclose(failed.final_loss, clean.final_loss, rtol=1e-5,
+                      atol=0):
+        raise AssertionError(f"recovered final loss {failed.final_loss!r} "
+                             f"!= clean {clean.final_loss!r}")
+    stats = dict(steps=spec["steps"], losses=clean.losses,
+                 rtol=golden.TRAIN_RTOL, max_rel_err=rel,
+                 max_loss_rel_err=rel["loss"], tf32_max_rel_err=tf32_rel,
+                 tf32_within_rtol=max(tf32_rel.values())
+                 <= golden.TRAIN_RTOL,
+                 min_router_margin=per_step,
+                 recovered_final_loss=failed.final_loss,
+                 clean_final_loss=clean.final_loss,
+                 restarts=failed.restarts)
+    print(f"[train-reduced] losses, aux losses and grad norms match the "
+          f"golden record; {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def run_train_dense() -> dict:
+    """The 100M example's model (``repro-100m``) trained on the card for
+    :data:`DENSE_TRAFFIC`; the loss must fall."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train(DENSE_CFG, reduced=False, device="cuda",
+                        log_every=10, **DENSE_TRAFFIC)
+    losses = res.losses
+    if res.restarts or len(losses) != DENSE_TRAFFIC["steps"]:
+        raise AssertionError(f"dense run: {res.restarts} restarts, "
+                             f"{len(losses)} steps")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"the dense loss did not fall: {losses}")
+    tokens = DENSE_TRAFFIC["batch"] * DENSE_TRAFFIC["seq"]
+    stats = dict(arch=DENSE_CFG.name, params=DENSE_CFG.param_count(),
+                 **DENSE_TRAFFIC, tokens_per_s=tokens_per_s(res, tokens),
+                 step_ms_median=statistics.median(res.step_s[1:]) * 1e3,
+                 first_step_ms=res.step_s[0] * 1e3,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 first_losses=losses[:3], last_losses=losses[-3:])
+    print(f"[train-dense] {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def training_shape_times(stats: dict, calls: dict) -> list:
+    """The ``group_matmul_train`` and ``group_matmul_train_dx`` rows: the
+    kernel on the training leg's recorded layer-0 operands (bf16, tile_m
+    128, capacity 160 padded to 256), forward ``wg`` 4096 -> 6400 in the
+    row's own keys and ``wo`` 6400 -> 4096 beside it, and the backward's
+    dx (``dy @ w^T`` on the contiguous transposed copy, whose own time is
+    ``transpose_ms``) for both; launches and max |err| are the training
+    path's."""
+    meta = KERNELS["group_matmul"]
+    first = 3 * TRAIN_CFG.n_layers * TRAIN_RECORD_STEP
+    fwd, dx = {}, {}
+    few = dict(reps=7, plain_reps=3, inner=3)
+    for n, tag in ((first, "wg"), (first + 2, "wo")):
+        r = calls[n]
+        w = r["w"]
+        fwd[tag] = expert_shape_times(r["xe"], w, **few)
+        wt = w.transpose(1, 2).contiguous()
+        dx[tag] = expert_shape_times(r["dy"].to(w.dtype), wt, **few)
+        dx[tag]["transpose_ms"] = library_ms(
+            lambda: w.transpose(1, 2).contiguous(), 7, 3)
+        del wt
+    errs = stats["max_abs_err"]
+    rows = []
+    for name, times, kind, count in (
+            ("group_matmul_train", fwd, "forward", "launches_forward"),
+            ("group_matmul_train_dx", dx, "dx", "launches_dx")):
+        wg = times.pop("wg")
+        rows.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=stats[count],
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith(kind)),
+            dtype="bfloat16", **wg, **times))
+    return rows
+
+
 def shares(row: dict) -> dict:
     """The row's ranking keys: ``bound_share`` (bound_ms / ms: the share of
     the card's least time the kernel reaches) and ``vs_library`` (ms /
@@ -488,6 +795,27 @@ def shares(row: dict) -> dict:
     lib = row.get("library_ms")
     return dict(row, bound_share=row["bound_ms"] / row["ms"],
                 vs_library=None if lib is None else row["ms"] / lib)
+
+
+@torch.inference_mode()
+def expert_shape_times(xe: torch.Tensor, w: torch.Tensor, *,
+                       reps: int = 21, plain_reps: int = 21,
+                       inner: int = 10) -> dict:
+    """``grouped_expert_matmul(xe, w)`` (the kernel), its plain version and
+    ``torch.bmm`` timed on the given operands, beside the bound of the rows
+    the call needs (``c`` real rows, whatever the tiles pad)."""
+    e, c, d = xe.shape
+    f = w.shape[2]
+    nbytes = (e * c * d + e * d * f) * w.element_size() + e * c * f * 4
+    flops = 2 * e * c * d * f
+    return shares(dict(
+        shape=[e, c, d, f],
+        ms=time_ms(lambda: moe.grouped_expert_matmul(xe, w), reps, inner),
+        plain_ms=time_ms(lambda: plain_grouped(xe, w), plain_reps,
+                         1 if plain_reps < reps else inner),
+        **bound(nbytes, flops, w.dtype),
+        library_ms=library_ms(lambda: torch.bmm(xe, w), reps, inner),
+        bytes=nbytes, flops=flops))
 
 
 def serving_shape_times(served: dict, calls: dict) -> dict:
@@ -503,20 +831,7 @@ def serving_shape_times(served: dict, calls: dict) -> dict:
     shapes = {}
     for n, tag in ((per_fwd, "wg"), (per_fwd + 2, "wo"), (0, "prefill_wg"),
                    (2, "prefill_wo")):
-        xe, w, _ = calls[n]
-        e, c, d = xe.shape
-        f = w.shape[2]
-        nbytes = (e * c * d + e * d * f) * w.element_size() + e * c * f * 4
-        flops = 2 * e * c * d * f
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS
-        shapes[tag] = shares(dict(
-            shape=[e, c, d, f],
-            ms=time_ms(lambda: moe.grouped_expert_matmul(xe, w)),
-            plain_ms=time_ms(lambda: plain_grouped(xe, w)),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=library_ms(lambda: torch.bmm(xe, w)),
-            bytes=nbytes, flops=flops))
+        shapes[tag] = expert_shape_times(calls[n]["xe"], calls[n]["w"])
     wg = shapes.pop("wg")
     return dict(
         name="group_matmul_serve", route="cuda", source=meta["source"],
@@ -534,16 +849,13 @@ def check_kernels(errs: dict) -> list:
     for name, meta in KERNELS.items():
         args = legs[name]
         w = bench_kernels.work(name, args)
-        t_bytes = w["bytes"] / HBM_BYTES_PER_S
-        t_ops = w["flops"] / PEAK_F32_FLOPS
         row = dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=None,
             max_abs_err=errs[name]["float32"],
             ms=time_ms(lambda: bench_kernels.run_kernel(name, args)),
             plain_ms=time_ms(lambda: bench_kernels.run_plain(name, args)),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **bound(w["bytes"], w["flops"], torch.float32),
             library_ms=None, dtype="float32",
             max_abs_err_bf16=errs[name]["bfloat16"],
             flops=w["flops"], bytes=w["bytes"])
@@ -598,17 +910,38 @@ def main() -> int:
     serve_row = serving_shape_times(served, calls)
     print(f"[kernel] {json.dumps(serve_row)}", flush=True)
     del calls
+    torch.cuda.empty_cache()
+
+    # --- the training path, launch counts from zero in each leg --------------
+    t_train = time.time()
+    trained, calls = run_train_moe()
+    torch.cuda.empty_cache()
+    train_reduced = run_train_reduced()
+    dense = run_train_dense()
+    train_rows = training_shape_times(trained, calls)
+    for row in train_rows:
+        print(f"[kernel] {json.dumps(row)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[train] phase {time.time() - t_train:.1f} s", flush=True)
 
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows.append(serve_row)
+    rows += train_rows
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"simulator": sim, "serve": {
         k: served[k] for k in ("serves", "prefill_s", "decode_s",
                                "decode_tok_s", "group_matmul_launches",
                                "peak_mem_bytes")},
-        "serve_reduced_tokens_compared": compared}))
+        "serve_reduced_tokens_compared": compared,
+        "train": {k: trained[k] for k in (
+            "step_ms", "tokens_per_s", "peak_mem_bytes", "losses",
+            "group_matmul_launches")},
+        "train_reduced": train_reduced,
+        "train_dense": {k: dense[k] for k in (
+            "tokens_per_s", "step_ms_median", "peak_mem_bytes")}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

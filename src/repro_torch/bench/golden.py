@@ -40,6 +40,13 @@ on the requests of ``examples/serve_moe.py`` (:func:`serve_requests`), and
 each token's top-2 logit margin from the port's f32 CPU run, whose tokens
 equal the reference's.  A test regenerates the file; a card run is held to
 it with :func:`check_serve_tokens`.
+
+**Reduced training** (``golden/train_reduced.json``): the JAX reference's
+``make_train_step`` on the reduced Phi-3.5-MoE (:data:`TRAIN_SPEC`) with
+f32 parameters from :func:`serve_params_numpy` and the batches of
+``SyntheticTokenStream``, on the CPU: each step's loss, aux loss and
+gradient norm.  The card has no JAX, so it is held to this file with
+:func:`check_train` (:data:`TRAIN_RTOL`).
 """
 from __future__ import annotations
 
@@ -56,6 +63,18 @@ GOLDEN_PATH = os.path.join(GOLDEN_DIR, "paper_grid.json")
 SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
 SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
 SERVICE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "service.json")
+TRAIN_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "train_reduced.json")
+#: the reduced training run: arch, parameter seed, data stream and steps
+#: (the batches are ``SyntheticTokenStream(vocab, batch, seq, seed=
+#: data_seed)``'s, as ``train()``'s pipeline draws them)
+TRAIN_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", param_seed=0, data_seed=0,
+                  steps=8, batch=4, seq=32, lr=3e-4)
+#: losses, aux losses and gradient norms are held to the reference's
+#: within this relative tolerance, the CPU tests' own: the sums run in
+#: other orders (f32), and Adam's normalised step turns the last bits of a
+#: tiny gradient into whole steps of ``lr``; the port's CPU run is within
+#: 6e-7 of the reference over the 8 steps
+TRAIN_RTOL = 1e-5
 #: the service legs' traffic: ``fig17_traffic(copies=2)``
 SERVICE = dict(traffic="fig17", copies=2)
 #: the reduced serving run: arch, traffic of examples/serve_moe.py, seed
@@ -328,3 +347,37 @@ def check_serve_tokens(outputs: list, want: dict) -> int:
                                      f"golden {toks}")
             compared += 1
     return compared
+
+
+def load_train_golden(path: str = TRAIN_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_train(losses, aux_losses, grad_norms, want: dict,
+                rtol: float = TRAIN_RTOL) -> dict:
+    """Raise unless each step's loss, aux loss and gradient norm equal the
+    golden record's within ``rtol``; returns each one's largest relative
+    error over the steps."""
+    errs = train_rel_errs(losses, aux_losses, grad_norms, want)
+    got = dict(loss=losses, aux_loss=aux_losses, grad_norm=grad_norms)
+    for k, vals in got.items():
+        ref = want[k]
+        if len(vals) != len(ref):
+            raise AssertionError(f"{len(vals)} steps of {k}, golden has "
+                                 f"{len(ref)}")
+        bad = [i for i, (g, r) in enumerate(zip(vals, ref))
+               if not abs(g - r) <= rtol * abs(r)]
+        if bad:
+            i = bad[0]
+            raise AssertionError(f"{k} at step {i}: {vals[i]!r} != golden "
+                                 f"{ref[i]!r} (rtol {rtol}); got {vals}")
+    return errs
+
+
+def train_rel_errs(losses, aux_losses, grad_norms, want: dict) -> dict:
+    """The largest |got - golden| / |golden| over the steps of the loss, the
+    aux loss and the gradient norm (over the steps both have)."""
+    got = dict(loss=losses, aux_loss=aux_losses, grad_norm=grad_norms)
+    return {k: max((abs(g - r) / abs(r) for g, r in zip(vals, want[k])),
+                   default=0.0) for k, vals in got.items()}

@@ -60,6 +60,16 @@ def decode_profile(cfg, device, steps: int) -> dict:
                                          if cuda else [])
         with profile(activities=acts) as prof:
             run(steps)
+    return dict(
+        device=(torch.cuda.get_device_name(0) if cuda else "cpu"),
+        arch=cfg.name, n_layers=cfg.n_layers, slots=SLOTS, steps=steps,
+        wall_ms_per_step=wall_ms, **device_summary(prof, steps, wall_ms))
+
+
+def device_summary(prof, steps: int, wall_ms: float) -> dict:
+    """Device milliseconds a step, the busy share of ``wall_ms``, the share
+    in ``group_matmul``, kernel launches a step and the top kernels and
+    operators of a ``torch.profiler`` run over ``steps`` steps."""
     avgs = prof.key_averages()
     on_device = torch.autograd.DeviceType.CUDA
 
@@ -81,9 +91,6 @@ def decode_profile(cfg, device, steps: int) -> dict:
                 for e in sorted(events, key=dev_us, reverse=True)[:n]]
 
     return dict(
-        device=(torch.cuda.get_device_name(0) if cuda else "cpu"),
-        arch=cfg.name, n_layers=cfg.n_layers, slots=SLOTS, steps=steps,
-        wall_ms_per_step=wall_ms,
         device_ms_per_step=device_us / 1e3 / steps,
         device_busy_share=(device_us / 1e3 / steps) / wall_ms,
         group_matmul_device_share=gm_us / max(device_us, 1e-9),

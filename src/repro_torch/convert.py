@@ -4,7 +4,10 @@ The port imports nothing of the JAX package, so the two meet in numpy: a
 test turns the reference's ``MachineState`` into ``{field: np.asarray(leaf)}``
 and hands it to :func:`state_from_numpy`, which puts the *same* state on
 the port's device; :func:`state_to_numpy` goes the other way.
-:func:`params_from_numpy` does the same for a model's parameters.
+:func:`params_from_numpy` does the same for a model's parameters and
+:func:`params_to_numpy` goes back; :func:`adamw_from_numpy` and
+:func:`adamw_to_numpy` carry the AdamW state (moments, f32 master weights
+and count) in the reference's layout.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from repro_torch.core.batch import BatchedWorkloads
 from repro_torch.core.machine import MachineState
 from repro_torch.models.lm import LM
 from repro_torch.sparse.formats import BCSR
+from repro_torch.train.optimizer import AdamWState
 
 
 def state_from_numpy(leaves: dict, device="cuda") -> MachineState:
@@ -62,10 +66,10 @@ def bcsr_from_numpy(indptr, indices, blocks, n_blocks, shape, block,
         n_blocks=int(n_blocks), shape=tuple(shape), block=tuple(block))
 
 
-def params_from_numpy(tree: dict, cfg, device="cuda") -> LM:
-    """The reference's parameter pytree of a dense / MoE transformer, as
-    numpy with a leading layer axis under ``"blocks"`` -> the port's
-    :class:`repro_torch.models.lm.LM` on ``device``, dtypes kept."""
+def tree_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+    """A tree in the reference's layout (numpy, a leading layer axis under
+    ``"blocks"``) -> the port's nested dict (``"blocks"`` a list of one
+    dict per layer) of tensors on ``device``, dtypes kept."""
     def leaves(t, i=None):
         return {k: leaves(v, i) if isinstance(v, dict) else
                 torch.as_tensor(np.array(v if i is None else v[i]),
@@ -73,4 +77,53 @@ def params_from_numpy(tree: dict, cfg, device="cuda") -> LM:
                 for k, v in t.items()}
     top = {k: leaves(v) for k, v in tree.items() if k != "blocks"}
     top["blocks"] = [leaves(tree["blocks"], i) for i in range(cfg.n_layers)]
-    return LM(top)
+    return top
+
+
+def tree_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`tree_from_numpy`: host numpy copies with the
+    layers stacked under ``"blocks"`` (a bf16 leaf comes back as f32,
+    which holds it exactly: numpy has no bf16)."""
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        t = t.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(ts):
+        if isinstance(ts[0], dict):
+            return {k: stack([t[k] for t in ts]) for k in ts[0]}
+        return np.stack(ts)
+    out = {k: host(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = stack([host(b) for b in tree["blocks"]])
+    return out
+
+
+def params_from_numpy(tree: dict, cfg, device="cuda") -> LM:
+    """The reference's parameter pytree of a dense / MoE transformer, as
+    numpy with a leading layer axis under ``"blocks"`` -> the port's
+    :class:`repro_torch.models.lm.LM` on ``device``, dtypes kept."""
+    return LM(tree_from_numpy(tree, cfg, device))
+
+
+def params_to_numpy(params: LM) -> dict:
+    """The port's :class:`LM` -> the reference's parameter pytree as
+    numpy (:func:`tree_to_numpy`)."""
+    return tree_to_numpy(params.tree())
+
+
+def adamw_from_numpy(state: dict, cfg, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` as ``{"m", "v", "master": pytree,
+    "count": int}`` of numpy -> the port's :class:`AdamWState` on
+    ``device``."""
+    return AdamWState(
+        *(tree_from_numpy(state[k], cfg, device) for k in
+          ("m", "v", "master")),
+        count=torch.tensor(int(state["count"]), dtype=torch.int32,
+                           device=device))
+
+
+def adamw_to_numpy(state: AdamWState) -> dict:
+    """The inverse of :func:`adamw_from_numpy`."""
+    return dict(m=tree_to_numpy(state.m), v=tree_to_numpy(state.v),
+                master=tree_to_numpy(state.master), count=int(state.count))

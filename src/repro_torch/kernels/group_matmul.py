@@ -124,14 +124,53 @@ def tile_by_expert(xe: torch.Tensor, tile_m: int | None = None):
     return xe.reshape(e * cp, d), eid, tile_m
 
 
-def grouped_expert_matmul(xe: torch.Tensor, w: torch.Tensor, *,
-                          tile_m: int | None = None) -> torch.Tensor:
-    """Bucketized MoE compute: (e, c, d) @ (e, d, f) -> (e, c, f) f32,
-    through :func:`group_matmul` on the tiles of :func:`tile_by_expert`.
-    """
+def _grouped(xe: torch.Tensor, w: torch.Tensor, tile_m) -> torch.Tensor:
+    """(e, c, d) @ (e, d, f) -> (e, c, f) f32 through :func:`group_matmul`
+    on the tiles of :func:`tile_by_expert`."""
     e, c, d = xe.shape
     if w.dim() != 3 or w.shape[0] != e:
         raise ValueError(f"w must be ({e}, {d}, f), got {tuple(w.shape)}")
     x, eid, tile_m = tile_by_expert(xe, tile_m)
     out = group_matmul(x, eid, w, tile_m=tile_m)
     return out.reshape(e, -1, w.shape[2])[:, :c]
+
+
+class GroupedExpertMatmul(torch.autograd.Function):
+    """:func:`grouped_expert_matmul` with its gradient.  The reference
+    differentiates its ``ecd,edf->ecf`` einsum with XLA's transposes, in
+    the parameters' dtype; so here, with the cotangent ``dy`` cast to
+    ``w``'s dtype:
+
+    * ``dxe[e] = dy[e] @ w[e]^T`` is the same grouped product, so it
+      launches the same kernel on a contiguous (e, f, d) copy of ``w``
+      (on a CPU tensor, the plain version, as the forward);
+    * ``dw[e] = xe[e]^T @ dy[e]`` is ``torch.bmm``: the reference computes
+      it outside any Pallas kernel.
+    """
+
+    @staticmethod
+    def forward(ctx, xe, w, tile_m):
+        ctx.save_for_backward(xe, w)
+        ctx.tile_m = tile_m
+        return _grouped(xe, w, tile_m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w = ctx.saved_tensors
+        dy = dy.to(w.dtype)
+        dxe = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(1, 2).contiguous()
+            dxe = _grouped(dy, wt, ctx.tile_m).to(xe.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(xe.transpose(1, 2), dy)
+        return dxe, dw, None
+
+
+def grouped_expert_matmul(xe: torch.Tensor, w: torch.Tensor, *,
+                          tile_m: int | None = None) -> torch.Tensor:
+    """Bucketized MoE compute: (e, c, d) @ (e, d, f) -> (e, c, f) f32,
+    through :func:`group_matmul` on the tiles of :func:`tile_by_expert`;
+    differentiable (:class:`GroupedExpertMatmul`).
+    """
+    return GroupedExpertMatmul.apply(xe, w, tile_m)

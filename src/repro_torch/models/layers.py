@@ -2,7 +2,8 @@
 
 The port of the reference's ``repro/models/layers.py`` for the dense and
 MoE text models: RMSNorm, rotary embeddings, grouped-query attention with
-and without a KV cache, SwiGLU, embedding and unembedding.  Conventions
+and without a KV cache, SwiGLU, embedding, unembedding and the training
+loss (``cross_entropy``).  Conventions
 are the reference's:
 
   * activations in the parameters' dtype (bf16 at full width),
@@ -189,3 +190,15 @@ def unembed_init(gen, d, v, dtype=torch.bfloat16):
 
 def unembed(p, x):
     return (x @ p["w"]).float()
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy of ``logits`` (..., V) against integer
+    ``labels`` (...); with ``mask`` (...), the mask-weighted mean over at
+    least one token, as the reference."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if mask is not None:
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return loss.mean()

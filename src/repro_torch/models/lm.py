@@ -2,12 +2,15 @@
 
 The port of the transformer branch of the reference's ``repro/models/lm.py``
 (``init_params``, ``tfm_block_init``, ``_tfm_block``, the text path of
-``_embed_inputs``, ``forward``, ``make_caches``).  The reference stacks its
-layers and runs them with ``lax.scan``; here the parameters are an
-:class:`LM` module whose ``blocks`` are one module per layer, walked by a
-Python loop.  Parameter shapes, scales and dtypes are the reference's:
-normals drawn in f32 and cast to the model dtype (bf16 unless asked),
-norms and the router in f32.
+``_embed_inputs``, ``forward``, ``make_caches``, ``_remat``).  The
+reference stacks its layers and runs them with ``lax.scan``; here the
+parameters are an :class:`LM` module whose ``blocks`` are one module per
+layer, walked by a Python loop.  Parameter shapes, scales and dtypes are
+the reference's: normals drawn in f32 and cast to the model dtype (bf16
+unless asked), norms and the router in f32.  Every parameter is trainable;
+serving runs under ``torch.inference_mode()``.  The reference's
+sequence-sharding constraint (``seq_shard_acts``) is identity on one
+device and has no counterpart here.
 
 The other families raise ``NotImplementedError``: xLSTM, Mamba-2 hybrid,
 MLA, audio and vision wait for their slice (ROADMAP.md, Queue 1, the
@@ -15,8 +18,11 @@ other model families).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -26,7 +32,8 @@ from repro_torch.models.config import ArchConfig
 class Tree(nn.Module):
     """A nested dict of tensors as a module: ``tree["wq"]`` reads a
     parameter, ``tree["moe"]`` a sub-tree, and ``.to`` / ``state_dict``
-    see every leaf.  Parameters carry no gradient (serving only)."""
+    see every leaf.  Every leaf is a trainable parameter (it shares the
+    given tensor's memory); :meth:`tree` gives the nested dict back."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -34,14 +41,20 @@ class Tree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, Tree(v))
             else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key):
         return getattr(self, key)
 
     def __contains__(self, key) -> bool:
         return key in self._parameters or key in self._modules
+
+    def tree(self) -> dict:
+        """The nested dict of this module's parameters (the same
+        tensors)."""
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
 
 
 class LM(nn.Module):
@@ -58,6 +71,14 @@ class LM(nn.Module):
 
     def __getitem__(self, key):
         return getattr(self, key)
+
+    def tree(self) -> dict:
+        """The parameters as the nested dict :class:`LM` is built from
+        (the same tensors): the trainer's and the checkpoint's view."""
+        out = {k: m.tree() for k, m in self._modules.items()
+               if k != "blocks"}
+        out["blocks"] = [b.tree() for b in self.blocks]
+        return out
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -111,6 +132,28 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of plain matrix products (JAX's ``checkpoint_dots_with_no_batch_dims``;
+    batched products, such as attention's and the expert products,
+    recompute)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """Activation rematerialization of a layer body, as the reference's
+    ``_remat``: ``"full"`` keeps only the layer's input, ``"dots"`` also
+    the matmul outputs.  Values are unchanged; only memory moves."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _tfm_block(blk, x, cfg: ArchConfig, cache, ci):
     h = L.rmsnorm(blk["ln1"], x)
     a, new_cache = L.attention(
@@ -143,9 +186,14 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
     x = _embed_inputs(params, cfg, batch)
     auxs = []
     for i, blk in enumerate(params.blocks):
-        cch = None if caches is None else {
-            "k": caches["blocks"]["k"][i], "v": caches["blocks"]["v"][i]}
-        x, _, aux = _tfm_block(blk, x, cfg, cch, cache_index)
+        if caches is None:
+            body = _remat(functools.partial(_tfm_block, blk, cfg=cfg,
+                                            cache=None, ci=cache_index), cfg)
+            x, _, aux = body(x)
+        else:
+            cch = {"k": caches["blocks"]["k"][i],
+                   "v": caches["blocks"]["v"][i]}
+            x, _, aux = _tfm_block(blk, x, cfg, cch, cache_index)
         auxs.append(aux["aux_loss"] if aux else
                     torch.zeros((), dtype=torch.float32, device=x.device))
     aux = torch.stack(auxs).mean()

@@ -9,7 +9,10 @@ uses :mod:`repro_torch.sparse.dispatch`.
 
 The three expert products (``wg``, ``wi``, ``wo``; the reference's
 ``ecd,edf->ecf`` einsums) run through :func:`grouped_expert_matmul`, the
-hand-written grouped-matmul kernel on the card.  The kernel returns f32;
+hand-written grouped-matmul kernel on the card (differentiable: the
+backward's dx runs the same kernel, dw ``torch.bmm``; the integer routing
+carries no gradient, the gates and the router's probabilities do, as
+under ``jax.grad`` in the reference).  The kernel returns f32;
 its output is rounded to the activations' dtype first, as the reference's
 einsum returns that dtype.  The reference's sharding constraints are
 identity on one device and have no counterpart here.

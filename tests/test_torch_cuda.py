@@ -452,3 +452,79 @@ def test_cuda_service_soak_matches_golden(cuda_device):
     assert rec["failures"] == []
     assert {k for _, _, k in rec["fired"]} == {"transient", "kill"}
     assert rec["restored_lanes"] > 0
+
+
+def _plain_grouped(xe, w, tile_m):
+    """The plain version of ``grouped_expert_matmul`` at ``tile_m``."""
+    from repro_torch.kernels.group_matmul import tile_by_expert
+    e, c, _ = xe.shape
+    x, eid, tile_m = tile_by_expert(xe, tile_m)
+    out = group_matmul_plain(x, eid, w, tile_m=tile_m)
+    return out.reshape(e, -1, w.shape[2])[:, :c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_m,c,d,f", [
+    (8, 1, 96, 200), (8, 5, 96, 200), (8, 17, 33, 65), (16, 16, 96, 200),
+    (16, 33, 130, 70), (128, 128, 96, 200), (128, 160, 130, 70),
+    (128, 300, 96, 200)])
+def test_cuda_grouped_expert_matmul_grads_match_plain(cuda_device, dtype,
+                                                      tile_m, c, d, f):
+    """The differentiable expert product on the card: the forward and the
+    backward's dx each launch the kernel once (the weight stream at
+    tile_m 8 and 16, the tiled shape at 128; capacities below, at and
+    past a tile) and agree with the plain version, and dw (``torch.bmm``)
+    with an f64 product."""
+    e = 3
+    rng = np.random.default_rng(tile_m + c + d)
+
+    def tol(depth):   # as test_cuda_group_matmul_matches_plain
+        if dtype == torch.bfloat16:
+            return dict(rtol=2e-2, atol=2e-2)
+        return dict(rtol=1e-5, atol=1e-5) if depth <= 128 else \
+            dict(rtol=1e-4, atol=1e-4)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device=cuda_device)
+    xe, w, cot = t(e, c, d).requires_grad_(), t(e, d, f).requires_grad_(), \
+        t(e, c, f)
+    before = group_matmul.launches
+    y = grouped_expert_matmul(xe, w, tile_m=tile_m)
+    (y * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert group_matmul.launches == before + 2
+    assert xe.grad.dtype == w.grad.dtype == dtype
+    with torch.no_grad():
+        torch.testing.assert_close(y, _plain_grouped(xe, w, tile_m),
+                                   **tol(d))
+        want_dx = _plain_grouped(cot, w.transpose(1, 2).contiguous(), tile_m)
+        torch.testing.assert_close(xe.grad.float(), want_dx, **tol(f))
+        want_dw = torch.einsum("ecd,ecf->edf", xe.double().cpu(),
+                               cot.double().cpu())
+        np.testing.assert_allclose(w.grad.double().cpu().numpy(),
+                                   want_dw.numpy(), **tol(c))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_golden(cuda_device):
+    """The reduced Phi-3.5-MoE in f32: one step of ``train()`` on the card
+    meets the reference's first step in ``train_reduced.json``."""
+    from repro_torch import configs
+    from repro_torch.bench import golden
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.train import train
+    spec = dict(golden.TRAIN_SPEC, steps=1)
+    cfg = configs.get_arch(spec["arch"]).reduced()
+    params = params_from_numpy(
+        golden.serve_params_numpy(cfg, spec["param_seed"]), cfg, cuda_device)
+    before = group_matmul.launches
+    res = train(spec["arch"], steps=1, batch=spec["batch"], seq=spec["seq"],
+                lr=spec["lr"], device=cuda_device, params=params,
+                log_every=0)
+    assert group_matmul.launches - before == 6 * cfg.n_layers
+    want = golden.load_train_golden()
+    golden.check_train(res.losses, res.aux_losses, res.grad_norms,
+                       {k: want[k][:1] for k in ("loss", "aux_loss",
+                                                 "grad_norm")})

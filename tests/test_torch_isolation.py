@@ -44,7 +44,12 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.serve.fabric", "repro_torch.serve.chaos",
               "repro_torch.checkpoint", "repro_torch.checkpoint.store",
               "repro_torch.bench.serve_bench",
-              "repro_torch.bench.chaos_soak"):
+              "repro_torch.bench.chaos_soak", "repro_torch.data",
+              "repro_torch.data.pipeline", "repro_torch.train",
+              "repro_torch.train.optimizer", "repro_torch.train.step",
+              "repro_torch.train.compress", "repro_torch.launch.train",
+              "repro_torch.launch.train_100m", "repro_torch.convert",
+              "repro_torch.bench.profile_train"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -100,6 +105,9 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.models.layers.rope_freqs",
               "repro_torch.models.lm.make_caches",
               "repro_torch.launch.serve.serve_batch",
+              "repro_torch.launch.train.train",
+              "repro_torch.convert.tree_from_numpy",
+              "repro_torch.convert.adamw_from_numpy",
               "repro_torch.core.machine.run_many",
               "repro_torch.core.sweep.sweep",
               "repro_torch.bench.fig17.run_grid_report"):

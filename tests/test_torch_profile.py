@@ -1,9 +1,11 @@
-"""The decode-step profile (``repro_torch.bench.profile_serve``) runs its
-serving loop end to end on the reduced Phi-3.5-MoE, here on the CPU.
+"""The decode-step and training-step profiles
+(``repro_torch.bench.profile_serve``, ``repro_torch.bench.profile_train``)
+run their loops end to end on the reduced Phi-3.5-MoE, here on the CPU.
 
-On the CPU the profiler records no device kernels, so only the loop and
-the shape of the row are checked; the device numbers come from a run on
-the card (``python -m repro_torch.bench.profile_serve``).
+On the CPU the profiler records no device kernels, so only the loops and
+the shape of the rows are checked; the device numbers come from a run on
+the card (``python -m repro_torch.bench.profile_serve`` and
+``python -m repro_torch.bench.profile_train``).
 """
 import pytest
 
@@ -22,3 +24,22 @@ def test_decode_profile_runs_the_serving_loop_on_cpu():
     assert set(row) >= {"device_ms_per_step", "device_busy_share",
                         "group_matmul_device_share", "top_kernels",
                         "top_device_ops"}
+
+
+def test_train_profile_runs_the_train_step_on_cpu():
+    """The training-step profile (``repro_torch.bench.profile_train``) on
+    the reduced Phi-3.5-MoE: the timed steps, the two halves and the
+    profiled steps run; the CPU launches no kernel."""
+    from repro_torch.bench.profile_train import LEGS, train_profile
+    cfg = configs.get_arch("phi35_moe_42b").reduced()
+    row = train_profile(cfg, "cpu", batch=2, seq=16, lr=3e-4, steps=2)
+    assert row["device"] == "cpu" and row["steps"] == 2
+    assert row["wall_ms_per_step"] > 0 and row["adamw_wall_ms"] > 0
+    assert row["fwd_bwd_wall_ms"] > 0 and row["tokens_per_s"] > 0
+    assert row["group_matmul_launches_per_step"] == 0
+    assert row["kernel_launches_per_step"] == 0
+    assert set(row) >= {"device_ms_per_step", "device_busy_share",
+                        "group_matmul_device_share", "top_kernels",
+                        "top_device_ops", "peak_mem_bytes"}
+    assert LEGS["moe"][0].d_model == 4096 and LEGS["moe"][0].n_layers == 2
+    assert LEGS["moe"][1]["lr"] == 3e-4 and LEGS["dense"][1]["lr"] == 1e-3
