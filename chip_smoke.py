@@ -43,7 +43,7 @@ Phases (any failure raises and the script exits non-zero):
    width (d 4096, 32/8 heads of 128, 16 experts top-2 of 6400, vocab
    32064), depth cut to 4 layers, bf16 parameters from a seeded
    generator, serving the 6 requests of ``examples/serve_moe.py`` (8 new
-   tokens, 3 slots, cache 128) through ``repro_torch.launch.serve``, five
+   tokens, 3 slots, cache 128) through ``repro_torch.launch.serve``, three
    times on the same parameters (median and spread of the speeds); every
    request must get its 8 tokens in [0, vocab), the same in every serve,
    the prefill logits must be finite, ``group_matmul`` must have been
@@ -76,23 +76,41 @@ Phases (any failure raises and the script exits non-zero):
    model (``repro-100m``) for 30 steps (batch 4, seq 128, lr 1e-3), its
    last three losses' mean under the first three's (the full-width and
    100M legs are ``repro_torch.bench.profile_train.LEGS``);
-7. time each kernel and its plain version with CUDA events over
+7. the other model families (``[families]``), one at a time with memory
+   freed between them and the launch counts from 0 in each serve, at full
+   width and depth with bf16 parameters from a generator seeded with 0:
+   DeepSeek-V2-Lite (27 layers, MLA, 64 experts top-6 with 2 shared),
+   Zamba2-1.2B (38 Mamba-2 layers and the shared attention), xLSTM-350M
+   (24 layers) and LLaVA-NeXT-Mistral-7B (32 layers, text) each serve the
+   6 requests once (every request its 8 tokens in [0, vocab));
+   ``group_matmul`` must have been launched on DeepSeek's path and its
+   layer-0 expert products of the first prefill and decode step must
+   agree with the plain version as the Phi products do, and no other
+   family may launch it; LLaVA prefills 2,880 anyres patches of 1,024
+   before 16 tokens (logits (1, 2896, 32000)) and HuBERT-XLarge encodes 2
+   x 512 frames (logits (2, 512, 504)), both finite; then the reduced
+   families in f32 are held to ``src/repro_torch/golden/families_reduced
+   .json`` (served tokens up to the 1e-3 margin, encode and vision
+   logits within 1e-4);
+8. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
    the training shapes, whose plain version takes tens of ms), at the
    f32 legs' shapes and, for ``group_matmul``, also at the serving
-   path's decode and prefill shapes and the training path's forward and
+   paths' decode and prefill shapes and the training path's forward and
    dx shapes; compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-8. print the kernels line (a row per leg with the legs' launches,
+9. print the kernels line (a row per leg with the legs' launches,
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
-   ``group_matmul_serve`` row at the decode shape, with ``wo`` and the
+   ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
-   path's launches, and ``group_matmul_train`` / ``group_matmul_train_dx``
+   path's launches, ``group_matmul_train`` / ``group_matmul_train_dx``
    rows at the training leg's ``wg`` shapes, with ``wo`` in each, with the
-   training path's forward and dx launches), the card line and, last, the
-   ok line.
+   training path's forward and dx launches, and a
+   ``group_matmul_deepseek_serve`` row as the Phi one at DeepSeek's
+   shapes with its serve's launches), the card line and, last, the ok
+   line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
 is not available.
@@ -118,6 +136,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
+from repro_torch.bench.profile_serve import serve_config  # noqa: E402
 from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
 from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
@@ -130,7 +149,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.train_100m import tokens_per_s  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
-from repro_torch.serve.steps import make_prefill_step  # noqa: E402
+from repro_torch.serve.steps import encode_step, make_prefill_step  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores and dense bf16 FLOP/s on them.  A bound takes the peak of
@@ -140,12 +159,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 #: the full-width serving run: Phi-3.5-MoE, depth cut 32 -> 4 layers (the
-#: 41.9 B parameters are 83.7 GB in bf16, more than the card's 80 GB)
-SERVE_LAYERS = 4
+#: 41.9 B parameters are 83.7 GB in bf16, more than the card's 80 GB): the
+#: config that ``repro_torch.bench.profile_serve`` profiles
+SERVE_CFG = serve_config("phi35_moe_42b")
 SERVE_TRAFFIC = dict(max_new_tokens=8, batch_slots=3, cache_len=128)
 #: serves of that traffic in one run (one pass is ~1.5 s, too short to
 #: read the speed from once): their median and spread are reported
-SERVE_REPEATS = 5
+SERVE_REPEATS = 3
 #: the full-width training run (Phi-3.5-MoE, depth cut 32 -> 2 layers)
 #: and the 100M example's model, with their traffic: the legs that
 #: ``repro_torch.bench.profile_train`` profiles
@@ -154,6 +174,12 @@ DENSE_CFG, DENSE_TRAFFIC = TRAIN_LEGS["dense"]
 #: the step of the training run whose layer-0 expert products are held to
 #: the plain version (the second)
 TRAIN_RECORD_STEP = 1
+#: the ``[families]`` phase at full width and depth (the archs of
+#: ``golden.FAMILIES_SPEC``): HuBERT-XLarge encodes seeded frames (batch,
+#: frames of 512) and LLaVA-NeXT prefills its 2,880 anyres patches before
+#: seeded tokens
+ENCODE_FRAMES = (2, 512)
+VISION_TOKENS = 16
 #: the bf16 tolerance of a recorded expert product against its plain
 #: version: elementwise (rtol = atol) and, since a backward's dx is many
 #: orders of magnitude below 1, also max |err| over max |plain|
@@ -473,13 +499,38 @@ class ExpertCalls:
         return out
 
 
+def check_served(res, cfg) -> None:
+    """Every request got its new tokens, each in [0, vocab)."""
+    n_new = SERVE_TRAFFIC["max_new_tokens"]
+    for i, out in enumerate(res.outputs):
+        if len(out) != n_new or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"{cfg.name} request {i}: bad tokens "
+                                 f"{out.tolist()}")
+
+
+def serve_expert_checks(rec: ExpertCalls, per_fwd: int, path: str):
+    """The kernel against its plain version on a serve's own operands: the
+    recorded ``wg`` / ``wi`` / ``wo`` of layer 0 in the first prefill
+    (calls 0-2) and the first decode step (``per_fwd`` on); returns max
+    |err| and max |err| / max |plain| by product."""
+    errs, rel = {}, {}
+    for n, r in sorted(rec.calls.items()):
+        name = ("prefill" if n < per_fwd else "decode") + \
+            f"_{['wg', 'wi', 'wo'][n % 3]}"
+        got = check_expert(f"{path}, {name}", r["out"],
+                           plain_grouped(r["xe"], r["w"]))
+        errs[name], rel[name] = got["max_abs_err"], got["rel_err"]
+    if len(errs) != 6:
+        raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
+    return errs, rel
+
+
 def run_serve() -> tuple[dict, dict]:
-    """Phi-3.5-MoE at full width, depth cut to :data:`SERVE_LAYERS`,
+    """Phi-3.5-MoE at full width, depth cut as in :data:`SERVE_CFG`,
     served :data:`SERVE_REPEATS` times on the card, every launch count
     from 0; returns the stats and the expert products recorded for the
     kernel checks."""
-    cfg = dataclasses.replace(configs.get_arch("phi35_moe_42b"),
-                              n_layers=SERVE_LAYERS)
+    cfg = SERVE_CFG
     reqs = golden.serve_requests()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = lm.init_params(cfg, gen)
@@ -503,10 +554,7 @@ def run_serve() -> tuple[dict, dict]:
     launches = group_matmul.launches
     peak = torch.cuda.max_memory_allocated()
     res = runs[0]
-    n_new = SERVE_TRAFFIC["max_new_tokens"]
-    for i, out in enumerate(res.outputs):
-        if len(out) != n_new or out.min() < 0 or out.max() >= cfg.vocab:
-            raise AssertionError(f"request {i}: bad tokens {out.tolist()}")
+    check_served(res, cfg)
     for k, other in enumerate(runs[1:], 1):
         if [o.tolist() for o in other.outputs] != \
                 [o.tolist() for o in res.outputs]:
@@ -527,16 +575,7 @@ def run_serve() -> tuple[dict, dict]:
     if first != [int(res.outputs[i][0]) for i in range(slots)]:
         raise AssertionError(f"prefill tokens {first} differ from the "
                              "first served tokens")
-    # the kernel against its plain version on the path's own operands
-    errs, rel = {}, {}
-    for n, r in sorted(rec.calls.items()):
-        name = ("prefill" if n < per_fwd else "decode") + \
-            f"_{['wg', 'wi', 'wo'][n % 3]}"
-        got = check_expert(f"serving path, {name}", r["out"],
-                           plain_grouped(r["xe"], r["w"]))
-        errs[name], rel[name] = got["max_abs_err"], got["rel_err"]
-    if len(errs) != 6:
-        raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
+    errs, rel = serve_expert_checks(rec, per_fwd, "serving path")
     speed = {}
     for key in ("prefill_s", "decode_s", "decode_tok_s"):
         vals = [getattr(r, key) for r in runs]
@@ -752,6 +791,148 @@ def run_train_dense() -> dict:
     return stats
 
 
+def serve_family(name: str, gen: torch.Generator):
+    """One family at full width and depth, bf16 parameters from ``gen``,
+    serving the requests once with the launch counts from 0; returns the
+    stats, the parameters and, for an MoE family, layer 0's expert
+    products of the first prefill and decode step held to the plain
+    version (then ``group_matmul`` must have been launched)."""
+    cfg = configs.get_arch(name)
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_fwd = 3 * cfg.n_layers
+    rec = ExpertCalls([0, 1, 2, per_fwd, per_fwd + 1, per_fwd + 2])
+    moe.grouped_expert_matmul = rec
+    for meta in KERNELS.values():
+        meta["wrapper"].launches = 0
+    try:
+        res = serve.serve_batch(cfg, golden.serve_requests(), reduced=False,
+                                device="cuda", params=params,
+                                **SERVE_TRAFFIC)
+        torch.cuda.synchronize()
+    finally:
+        moe.grouped_expert_matmul = rec.inner
+    launches = group_matmul.launches
+    check_served(res, cfg)
+    stats = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 vocab=cfg.vocab, params=cfg.param_count(),
+                 prefill_s=res.prefill_s, decode_s=res.decode_s,
+                 decode_tok_s=res.decode_tok_s,
+                 tokens=res.tokens_generated,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 group_matmul_launches=launches,
+                 outputs=[o.tolist() for o in res.outputs])
+    if cfg.moe is not None:
+        if launches <= 0:
+            raise AssertionError(f"group_matmul was not launched serving "
+                                 f"{cfg.name}")
+        stats["max_abs_err"], stats["rel_err"] = serve_expert_checks(
+            rec, per_fwd, f"{cfg.name} serving path")
+    elif launches or rec.n:
+        raise AssertionError(f"{cfg.name} has no MoE layer, yet "
+                             f"group_matmul was launched {launches} times")
+    print(f"[families] serve {json.dumps(stats)}", flush=True)
+    return stats, params, rec.calls
+
+
+@torch.inference_mode()
+def timed_forward(fn, *args) -> tuple[torch.Tensor, dict]:
+    """``fn(*args)``'s logits, with its wall s and peak memory; the logits
+    must be finite."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    stats = dict(wall_s=time.time() - t0, shape=list(logits.shape),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"non-finite logits of shape {stats['shape']}")
+    return logits, stats
+
+
+def run_families() -> tuple[dict, dict]:
+    """The ``[families]`` phase at full width and depth, one family at a
+    time with memory freed between them: each decoder family of
+    ``golden.FAMILIES_SPEC`` served once (DeepSeek-V2-Lite's expert
+    products held to the plain ``group_matmul``), LLaVA-NeXT's vision
+    prefill on its serving parameters, and HuBERT-XLarge's encode.
+    Returns the stats by arch (and ``vision``, ``encode``) and the MoE
+    family's recorded expert products."""
+    spec = golden.FAMILIES_SPEC
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stats, calls = {}, None
+    for arch in spec["serve"]:
+        cfg = configs.get_arch(arch)
+        stats[arch], params, recorded = serve_family(arch, gen)
+        if cfg.moe is not None:
+            calls = recorded
+        if arch == spec["vision"]["arch"]:
+            batch = {
+                "patches": torch.randn(
+                    (1, cfg.n_patches, cfg.d_frontend), generator=gen,
+                    device="cuda").to(torch.bfloat16),
+                "tokens": torch.randint(
+                    0, cfg.vocab, (1, VISION_TOKENS), generator=gen,
+                    device="cuda", dtype=torch.int32)}
+            _, stats["vision"] = timed_forward(
+                lambda: lm.forward(params, cfg, batch)[0])
+            want = [1, cfg.n_patches + VISION_TOKENS, cfg.vocab]
+            if stats["vision"]["shape"] != want:
+                raise AssertionError(f"vision logits {stats['vision']}")
+            print(f"[families] vision {json.dumps(stats['vision'])}",
+                  flush=True)
+        del params, recorded
+        torch.cuda.empty_cache()
+    cfg = configs.get_arch(spec["encode"]["arch"])
+    params = lm.init_params(cfg, gen)
+    frames = torch.randn((*ENCODE_FRAMES, 512), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    _, stats["encode"] = timed_forward(encode_step(cfg), params, frames)
+    if stats["encode"]["shape"] != [*ENCODE_FRAMES, cfg.vocab]:
+        raise AssertionError(f"encode logits {stats['encode']}")
+    print(f"[families] encode {json.dumps(stats['encode'])}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return stats, calls
+
+
+def run_families_reduced() -> dict:
+    """The reduced families with f32 parameters on the card, held to the
+    reference's ``families_reduced.json``: each decoder family's served
+    tokens up to the first one won by a top-2 margin under
+    :data:`golden.SERVE_MARGIN`, HuBERT's encode and LLaVA's vision
+    logits within :data:`golden.FAMILIES_TOL`."""
+    want = golden.load_families_golden()
+    spec = golden.FAMILIES_SPEC
+    out = {}
+    for arch in spec["serve"]:
+        cfg = configs.get_arch(configs.ALIASES[arch]).reduced()
+        params = params_from_numpy(
+            golden.serve_params_numpy(cfg, spec["param_seed"]), cfg, "cuda")
+        res = serve.serve_batch(arch, golden.serve_requests(), device="cuda",
+                                params=params, **want["traffic"])
+        out[arch] = golden.check_serve_tokens(res.outputs,
+                                              want["serve"][arch])
+    for kind in ("encode", "vision"):
+        cfg = configs.get_arch(
+            configs.ALIASES[spec[kind]["arch"]]).reduced()
+        params = params_from_numpy(
+            golden.serve_params_numpy(cfg, spec["param_seed"]), cfg, "cuda")
+        inp = {k: torch.as_tensor(v, device="cuda") for k, v in
+               golden.family_inputs(cfg, kind).items()}
+        with torch.inference_mode():
+            logits = (encode_step(cfg)(params, inp["frames"])
+                      if kind == "encode" else
+                      lm.forward(params, cfg, inp)[0])
+        out[f"{kind}_max_abs_err"] = golden.check_logits(logits, want[kind])
+    print(f"[families-reduced] tokens compared per family and logits' max "
+          f"|err|, all within the golden record; {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def training_shape_times(stats: dict, calls: dict) -> list:
     """The ``group_matmul_train`` and ``group_matmul_train_dx`` rows: the
     kernel on the training leg's recorded layer-0 operands (bf16, tile_m
@@ -818,24 +999,26 @@ def expert_shape_times(xe: torch.Tensor, w: torch.Tensor, *,
         bytes=nbytes, flops=flops))
 
 
-def serving_shape_times(served: dict, calls: dict) -> dict:
-    """The ``group_matmul_serve`` row: the kernel on the serving path's
-    layer-0 operands (bf16, tile_m 8) at the first decode step (capacity
-    1), ``wg``'s shape 4096 -> 6400 (``wi``'s too) in the row's own keys
-    and ``wo``'s 6400 -> 4096 beside it, and at the first prefill
-    (capacity 6 in one 8-row tile) for both: kernel, plain and
-    ``torch.bmm`` times and the bound of the rows each call needs;
-    launches and max |err| are the serving path's."""
+def serving_shape_times(served: dict, calls: dict,
+                        name: str = "group_matmul_serve") -> dict:
+    """A serving row (``group_matmul_serve``: Phi-3.5-MoE, 16 experts,
+    4096 -> 6400; ``group_matmul_deepseek_serve``: DeepSeek-V2-Lite, 64
+    experts, 2048 -> 1408): the kernel on the serving path's layer-0
+    operands (bf16, tile_m 8) at the first decode step (``wg``'s shape,
+    ``wi``'s too, in the row's own keys and ``wo``'s beside it) and at the
+    first prefill for both: kernel, plain and ``torch.bmm`` times and the
+    bound of the rows each call needs; launches and max |err| are the
+    serving path's."""
     meta = KERNELS["group_matmul"]
-    per_fwd = 3 * SERVE_LAYERS
+    per_fwd = 3 * served["n_layers"]
     shapes = {}
     for n, tag in ((per_fwd, "wg"), (per_fwd + 2, "wo"), (0, "prefill_wg"),
                    (2, "prefill_wo")):
         shapes[tag] = expert_shape_times(calls[n]["xe"], calls[n]["w"])
     wg = shapes.pop("wg")
     return dict(
-        name="group_matmul_serve", route="cuda", source=meta["source"],
-        replaces=meta["replaces"],
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], arch=served["arch"],
         launches=served["group_matmul_launches"],
         max_abs_err=max(served["max_abs_err"].values()), dtype="bfloat16",
         **wg, **shapes)
@@ -925,11 +1108,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[train] phase {time.time() - t_train:.1f} s", flush=True)
 
+    # --- the other families, launch counts from zero in each serve ----------
+    t_fam = time.time()
+    families, calls = run_families()
+    families_reduced = run_families_reduced()
+    deepseek_row = serving_shape_times(
+        families["deepseek-v2-lite-16b"], calls,
+        name="group_matmul_deepseek_serve")
+    print(f"[kernel] {json.dumps(deepseek_row)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[families] phase {time.time() - t_fam:.1f} s", flush=True)
+
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows.append(serve_row)
     rows += train_rows
+    rows.append(deepseek_row)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"simulator": sim, "serve": {
         k: served[k] for k in ("serves", "prefill_s", "decode_s",
@@ -941,7 +1137,12 @@ def main() -> int:
             "group_matmul_launches")},
         "train_reduced": train_reduced,
         "train_dense": {k: dense[k] for k in (
-            "tokens_per_s", "step_ms_median", "peak_mem_bytes")}}))
+            "tokens_per_s", "step_ms_median", "peak_mem_bytes")},
+        "families": {k: {f: v[f] for f in (
+            "prefill_s", "decode_s", "decode_tok_s", "wall_s",
+            "peak_mem_bytes", "group_matmul_launches") if f in v}
+            for k, v in families.items()},
+        "families_reduced": families_reduced}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

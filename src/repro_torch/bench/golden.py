@@ -41,6 +41,16 @@ each token's top-2 logit margin from the port's f32 CPU run, whose tokens
 equal the reference's.  A test regenerates the file; a card run is held to
 it with :func:`check_serve_tokens`.
 
+**Reduced families** (``golden/families_reduced.json``): the reference's
+``serve_batch`` greedy tokens of the reduced Zamba2, xLSTM,
+DeepSeek-V2-Lite and LLaVA (as text) on the serving traffic above, with
+each token's top-2 margin from the port's f32 CPU run; its
+``encode_step`` logits of the reduced HuBERT over seeded frames; and its
+``lm.forward`` logits of the reduced LLaVA over seeded patches and tokens
+(:data:`FAMILIES_SPEC`, :func:`family_inputs`), all with f32 parameters
+from :func:`serve_params_numpy`.  A card run is held to it with
+:func:`check_serve_tokens` and :func:`check_logits`.
+
 **Reduced training** (``golden/train_reduced.json``): the JAX reference's
 ``make_train_step`` on the reduced Phi-3.5-MoE (:data:`TRAIN_SPEC`) with
 f32 parameters from :func:`serve_params_numpy` and the batches of
@@ -64,6 +74,7 @@ SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
 SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
 SERVICE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "service.json")
 TRAIN_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "train_reduced.json")
+FAMILIES_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "families_reduced.json")
 #: the reduced training run: arch, parameter seed, data stream and steps
 #: (the batches are ``SyntheticTokenStream(vocab, batch, seq, seed=
 #: data_seed)``'s, as ``train()``'s pipeline draws them)
@@ -82,6 +93,19 @@ SERVE_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", max_new_tokens=8,
                   batch_slots=3, cache_len=128, param_seed=0)
 #: tokens are compared up to the first one won by less than this margin
 SERVE_MARGIN = 1e-3
+#: the reduced families' records: the decoder families served with
+#: SERVE_SPEC's traffic (``serve``), HuBERT's encode of seeded frames
+#: (``encode``: batch, frames) and LLaVA's vision forward over seeded
+#: patches and tokens (``vision``: the tokens after the config's patches)
+FAMILIES_SPEC = dict(
+    serve=["zamba2-1.2b", "xlstm-350m", "deepseek-v2-lite-16b",
+           "llava-next-mistral-7b"],
+    encode=dict(arch="hubert-xlarge", batch=2, frames=16),
+    vision=dict(arch="llava-next-mistral-7b", tokens=8),
+    param_seed=0, input_seed=0)
+#: the encode and vision logits are held within this (rtol = atol), the
+#: CPU tests' f32 tolerance
+FAMILIES_TOL = 1e-4
 MAX_CYCLES = 400_000
 
 #: name -> (workload names or None for all, modes or None for all, sizes)
@@ -278,9 +302,13 @@ def first_wave_tokens(slots: int, device) -> torch.Tensor:
 
 
 def serve_params_numpy(cfg, seed: int = 0) -> dict:
-    """f32 parameters of a dense / MoE transformer in the reference's
-    pytree layout (a leading layer axis under ``"blocks"``), drawn from
-    ``default_rng(seed)`` at the reference's scales; norms are ones."""
+    """f32 parameters of any family in the reference's pytree layout (a
+    leading layer axis under each stacked group), drawn from
+    ``default_rng(seed)`` at the reference's scales; norms are ones.  The
+    Mamba-2 ``a_log`` and ``dt_bias`` are small normals where the
+    reference's init has zeros, so that the decay differs from head to
+    head.  The dense and MoE trees draw in the order of the records made
+    before the other families were added."""
     rng = np.random.default_rng(seed)
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab
 
@@ -290,32 +318,79 @@ def serve_params_numpy(cfg, seed: int = 0) -> dict:
     def ones(shape):
         return np.ones(shape, np.float32)
 
-    hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
-    blocks = {"ln1": {"g": ones((n, d))}, "ln2": {"g": ones((n, d))},
-              "attn": {"wq": normal((n, d, hq), d ** -0.5),
-                       "wk": normal((n, d, hk), d ** -0.5),
-                       "wv": normal((n, d, hk), d ** -0.5),
-                       "wo": normal((n, hq, d), hq ** -0.5)}}
-    if cfg.moe is not None:
-        e, f = cfg.moe.n_experts, cfg.moe.d_expert
-        blocks["moe"] = {"router": normal((n, d, e), d ** -0.5),
-                         "wi": normal((n, e, d, f), e ** -0.5),
-                         "wg": normal((n, e, d, f), e ** -0.5),
-                         "wo": normal((n, e, f, d), f ** -0.5)}
-        if cfg.moe.n_shared:
-            fs = cfg.moe.n_shared * max(cfg.moe.d_shared, 1)
-            blocks["moe"]["shared"] = {"wi": normal((n, d, fs), d ** -0.5),
-                                       "wg": normal((n, d, fs), d ** -0.5),
-                                       "wo": normal((n, fs, d), fs ** -0.5)}
+    def dense(shape):          # the reference's _init: 1/sqrt(fan-in)
+        return normal(shape, shape[-2] ** -0.5)
+
+    def gqa(lead):
+        hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+        return {"wq": dense(lead + (d, hq)), "wk": dense(lead + (d, hk)),
+                "wv": dense(lead + (d, hk)), "wo": dense(lead + (hq, d))}
+
+    if cfg.xlstm:
+        nm, ns, di = (n + 1) // 2, n // 2, 2 * d
+        tree = {
+            "mlstm": {"ln": {"g": ones((nm, d))}, "mixer": {
+                "wup": dense((nm, d, 2 * di)),
+                "wqkv": dense((nm, di, 3 * di)),
+                "wif": dense((nm, di, 2 * cfg.n_heads)),
+                "norm": {"g": ones((nm, di))},
+                "wdown": dense((nm, di, d))}},
+            "slstm": {"ln": {"g": ones((ns, d))}, "mixer": {
+                "wg": dense((ns, d, 4 * d)), "norm": {"g": ones((ns, d))},
+                "wout": dense((ns, d, d))}}}
+    elif cfg.ssm is not None:
+        sc = cfg.ssm
+        di, nh = sc.expand * d, sc.n_heads
+        tree = {
+            "mamba": {"ln": {"g": ones((n, d))}, "mixer": {
+                "win": dense((n, d, 2 * di + 2 * nh * sc.d_state + nh)),
+                "conv": normal((n, sc.d_conv, di), 0.5),
+                "a_log": normal((n, nh), 0.5),
+                "dt_bias": normal((n, nh), 0.5),
+                "dnorm": {"g": ones((n, di))},
+                "wout": dense((n, di, d))}},
+            "shared_attn": {"ln": {"g": ones((d,))}, "attn": gqa(())}}
     else:
-        f = cfg.d_ff
-        blocks["mlp"] = {"wi": normal((n, d, f), d ** -0.5),
-                         "wg": normal((n, d, f), d ** -0.5),
-                         "wo": normal((n, f, d), f ** -0.5)}
+        blocks = {"ln1": {"g": ones((n, d))}, "ln2": {"g": ones((n, d))}}
+        if cfg.mla is not None:
+            m, h = cfg.mla, cfg.n_heads
+            blocks["attn"] = {
+                "wq": dense((n, d, h * (m.nope_dim + m.rope_dim))),
+                "wdkv": dense((n, d, m.kv_lora + m.rope_dim)),
+                "wukv": dense((n, m.kv_lora, h * (m.nope_dim + m.v_dim))),
+                "wo": dense((n, h * m.v_dim, d))}
+        else:
+            blocks["attn"] = gqa((n,))
+        if cfg.moe is not None:
+            e, f = cfg.moe.n_experts, cfg.moe.d_expert
+            # the reference's _init scales the (e, d, f) leaves by e^-0.5
+            blocks["moe"] = {"router": dense((n, d, e)),
+                             "wi": normal((n, e, d, f), e ** -0.5),
+                             "wg": normal((n, e, d, f), e ** -0.5),
+                             "wo": normal((n, e, f, d), f ** -0.5)}
+            if cfg.moe.n_shared:
+                fs = cfg.moe.n_shared * max(cfg.moe.d_shared, 1)
+                blocks["moe"]["shared"] = {"wi": dense((n, d, fs)),
+                                           "wg": dense((n, d, fs)),
+                                           "wo": dense((n, fs, d))}
+        elif cfg.encoder_only:
+            blocks["mlp"] = {"wi": dense((n, d, cfg.d_ff)),
+                             "wo": dense((n, cfg.d_ff, d))}
+        else:
+            f = cfg.d_ff
+            blocks["mlp"] = {"wi": dense((n, d, f)), "wg": dense((n, d, f)),
+                             "wo": dense((n, f, d))}
+        tree = {"blocks": blocks}
     tree = {"embed": {"e": normal((v, d), 1.0)},
-            "final_norm": {"g": ones((d,))}, "blocks": blocks}
+            "final_norm": {"g": ones((d,))}, **tree}
     if not cfg.tie_embeddings:
-        tree["unembed"] = {"w": normal((d, v), d ** -0.5)}
+        tree["unembed"] = {"w": dense((d, v))}
+    if cfg.frontend == "audio":
+        tree["frontend"] = {"proj": dense((512, d))}
+        tree["head"] = {"w": dense((d, v))}
+    elif cfg.frontend == "vision":
+        tree["frontend"] = {"w1": dense((cfg.d_frontend, d)),
+                            "w2": dense((d, d))}
     return tree
 
 
@@ -347,6 +422,44 @@ def check_serve_tokens(outputs: list, want: dict) -> int:
                                      f"golden {toks}")
             compared += 1
     return compared
+
+
+def family_inputs(cfg, kind: str) -> dict:
+    """The seeded inputs of a reduced family's record (f32 numpy, from
+    ``default_rng(FAMILIES_SPEC["input_seed"])``): ``"encode"`` gives
+    ``{"frames": (batch, frames, 512)}``, ``"vision"`` gives
+    ``{"patches": (1, n_patches, d_frontend), "tokens": (1, tokens)}``."""
+    rng = np.random.default_rng(FAMILIES_SPEC["input_seed"])
+    spec = FAMILIES_SPEC[kind]
+    if kind == "encode":
+        return {"frames": rng.standard_normal(
+            (spec["batch"], spec["frames"], 512)).astype(np.float32)}
+    return {"patches": rng.standard_normal(
+                (1, cfg.n_patches, cfg.d_frontend)).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab, (1, spec["tokens"])
+                                   ).astype(np.int32)}
+
+
+def load_families_golden(path: str = FAMILIES_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_logits(got, want: dict, tol: float = FAMILIES_TOL) -> float:
+    """Raise unless ``got`` (an array or tensor) has the record's shape and
+    is within ``tol`` of its logits (rtol = atol); returns max |err|."""
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().cpu().numpy()
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(want["logits"], np.float32).reshape(want["shape"])
+    if got.shape != ref.shape:
+        raise AssertionError(f"logits of shape {got.shape}, golden "
+                             f"{ref.shape}")
+    err = float(np.abs(got - ref).max())
+    if not np.allclose(got, ref, rtol=tol, atol=tol):
+        raise AssertionError(f"logits differ from the golden record by up "
+                             f"to {err} (rtol = atol = {tol})")
+    return err
 
 
 def load_train_golden(path: str = TRAIN_GOLDEN_PATH) -> dict:

@@ -1,9 +1,13 @@
-"""Where a decode step's time goes, serving Phi-3.5-MoE on the card.
+"""Where a decode step's time goes, serving a model on the card.
 
     PYTHONPATH=src python -m repro_torch.bench.profile_serve [--steps 16]
+    PYTHONPATH=src python -m repro_torch.bench.profile_serve \
+        --arch deepseek-v2-lite-16b
 
-Builds Phi-3.5-MoE at full width with the depth cut of ``chip_smoke.py``
-(4 layers, bf16 weights from a seeded generator), prefills the first
+Builds the model (``--arch``, Phi-3.5-MoE by default) at full width with
+the depth cut of ``chip_smoke.py`` where it has one (Phi-3.5-MoE: 4
+layers; the other configs whole), bf16 weights from a seeded generator,
+prefills the first
 wave of ``examples/serve_moe.py``'s requests (3 slots, cache 128), warms
 the decode step up, then runs ``--steps`` greedy decode steps twice: once
 timed on the host clock around a ``torch.cuda.synchronize()``, once under
@@ -27,8 +31,19 @@ from repro_torch.bench import golden
 from repro_torch.models import lm
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
-N_LAYERS = 4
+#: the serving depth cuts of ``chip_smoke.py`` (the 41.9 B parameters of
+#: Phi-3.5-MoE do not fit the card's 80 GB in bf16); other configs whole
+DEPTH = {"phi35_moe_42b": 4}
 SLOTS, CACHE_LEN = 3, 128
+
+
+def serve_config(arch: str):
+    """``arch`` at full width with its serving depth cut, if any."""
+    name = configs.ALIASES.get(arch, arch)
+    cfg = configs.get_arch(name)
+    if name in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[name])
+    return cfg
 
 
 def decode_profile(cfg, device, steps: int) -> dict:
@@ -100,12 +115,11 @@ def device_summary(prof, steps: int, wall_ms: float) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3.5-moe-42b-a6.6b")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ns = ap.parse_args(argv)
-    cfg = dataclasses.replace(configs.get_arch("phi35_moe_42b"),
-                              n_layers=N_LAYERS)
-    out = decode_profile(cfg, ns.device, ns.steps)
+    out = decode_profile(serve_config(ns.arch), ns.device, ns.steps)
     print(json.dumps(out))
     return out
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.batch import BatchedWorkloads
 from repro_torch.core.machine import MachineState
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, layer_groups
 from repro_torch.sparse.formats import BCSR
 from repro_torch.train.optimizer import AdamWState
 
@@ -68,22 +68,31 @@ def bcsr_from_numpy(indptr, indices, blocks, n_blocks, shape, block,
 
 def tree_from_numpy(tree: dict, cfg, device="cuda") -> dict:
     """A tree in the reference's layout (numpy, a leading layer axis under
-    ``"blocks"``) -> the port's nested dict (``"blocks"`` a list of one
-    dict per layer) of tensors on ``device``, dtypes kept."""
+    each stacked group of :func:`repro_torch.models.lm.layer_groups`:
+    ``blocks``, ``mlstm``, ``slstm`` or ``mamba``) -> the port's nested
+    dict (each group a list of one dict per layer; ``shared_attn``,
+    ``frontend`` and ``head`` stay whole) of tensors on ``device``,
+    dtypes kept.  A leaf may also be a tensor."""
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device, copy=True)
+        return torch.as_tensor(np.array(v), device=device)
+
     def leaves(t, i=None):
         return {k: leaves(v, i) if isinstance(v, dict) else
-                torch.as_tensor(np.array(v if i is None else v[i]),
-                                device=device)
-                for k, v in t.items()}
-    top = {k: leaves(v) for k, v in tree.items() if k != "blocks"}
-    top["blocks"] = [leaves(tree["blocks"], i) for i in range(cfg.n_layers)]
-    return top
+                leaf(v if i is None else v[i]) for k, v in t.items()}
+    groups = layer_groups(cfg)
+    if not set(groups) <= set(tree):
+        raise ValueError(f"{cfg.name}: the tree lacks the layer groups "
+                         f"{sorted(set(groups) - set(tree))}")
+    return {k: [leaves(v, i) for i in range(groups[k])] if k in groups
+            else leaves(v) for k, v in tree.items()}
 
 
 def tree_to_numpy(tree: dict) -> dict:
-    """The inverse of :func:`tree_from_numpy`: host numpy copies with the
-    layers stacked under ``"blocks"`` (a bf16 leaf comes back as f32,
-    which holds it exactly: numpy has no bf16)."""
+    """The inverse of :func:`tree_from_numpy`: host numpy copies with each
+    group's layers stacked (a bf16 leaf comes back as f32, which holds it
+    exactly: numpy has no bf16)."""
     def host(t):
         if isinstance(t, dict):
             return {k: host(v) for k, v in t.items()}
@@ -94,14 +103,13 @@ def tree_to_numpy(tree: dict) -> dict:
         if isinstance(ts[0], dict):
             return {k: stack([t[k] for t in ts]) for k in ts[0]}
         return np.stack(ts)
-    out = {k: host(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = stack([host(b) for b in tree["blocks"]])
-    return out
+    return {k: stack([host(b) for b in v]) if isinstance(v, list)
+            else host(v) for k, v in tree.items()}
 
 
 def params_from_numpy(tree: dict, cfg, device="cuda") -> LM:
-    """The reference's parameter pytree of a dense / MoE transformer, as
-    numpy with a leading layer axis under ``"blocks"`` -> the port's
+    """The reference's parameter pytree of any family, as numpy with a
+    leading layer axis under each stacked group -> the port's
     :class:`repro_torch.models.lm.LM` on ``device``, dtypes kept."""
     return LM(tree_from_numpy(tree, cfg, device))
 

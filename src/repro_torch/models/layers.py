@@ -1,10 +1,9 @@
 """Core transformer layers (functional, dict-like params).
 
-The port of the reference's ``repro/models/layers.py`` for the dense and
-MoE text models: RMSNorm, rotary embeddings, grouped-query attention with
-and without a KV cache, SwiGLU, embedding, unembedding and the training
-loss (``cross_entropy``).  Conventions
-are the reference's:
+The port of the reference's ``repro/models/layers.py``: RMSNorm, rotary
+embeddings, grouped-query attention with and without a KV cache (causal,
+or not for the encoder), SwiGLU, the GELU MLP, embedding, unembedding and
+the training loss (``cross_entropy``).  Conventions are the reference's:
 
   * activations in the parameters' dtype (bf16 at full width),
     reductions and softmax in f32;
@@ -173,6 +172,17 @@ def swiglu_init(gen, d, f, dtype=torch.bfloat16):
 def swiglu(p, x):
     h = torch.nn.functional.silu((x @ p["wg"]).float()).to(x.dtype)
     return (h * (x @ p["wi"])) @ p["wo"]
+
+
+def gelu_mlp_init(gen, d, f, dtype=torch.bfloat16):
+    return {"wi": _init(gen, (d, f), dtype=dtype),
+            "wo": _init(gen, (f, d), scale=1.0 / math.sqrt(f), dtype=dtype)}
+
+
+def gelu_mlp(p, x):
+    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    h = torch.nn.functional.gelu((x @ p["wi"]).float(), approximate="tanh")
+    return h.to(x.dtype) @ p["wo"]
 
 
 # -------------------------------------------------------------- embedding --

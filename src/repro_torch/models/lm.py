@@ -1,20 +1,23 @@
-"""Model assembly: the dense / MoE transformer language model.
+"""Model assembly: one generic LM covering all ten configured families.
 
-The port of the transformer branch of the reference's ``repro/models/lm.py``
-(``init_params``, ``tfm_block_init``, ``_tfm_block``, the text path of
-``_embed_inputs``, ``forward``, ``make_caches``, ``_remat``).  The
-reference stacks its layers and runs them with ``lax.scan``; here the
-parameters are an :class:`LM` module whose ``blocks`` are one module per
-layer, walked by a Python loop.  Parameter shapes, scales and dtypes are
-the reference's: normals drawn in f32 and cast to the model dtype (bf16
-unless asked), norms and the router in f32.  Every parameter is trainable;
+The port of the reference's ``repro/models/lm.py`` (``init_params`` and
+the block inits, ``_tfm_block``, ``_embed_inputs``, ``forward``,
+``make_caches``, ``_remat``).  The block programs are the reference's:
+
+  dense / moe / vlm / audio : [attention or MLA] + [SwiGLU | MoE | GELU-MLP]
+  hybrid (zamba2)           : Mamba-2 blocks + one *shared* attention block
+                              applied every ``ssm.attn_every`` layers
+  ssm (xlstm)               : the mLSTM blocks, then the sLSTM blocks
+
+The reference stacks each group of layers and runs it with ``lax.scan``;
+here the parameters are an :class:`LM` module with one module per layer
+in each group, walked by a Python loop.  Parameter shapes, scales and
+dtypes are the reference's: normals drawn in f32 and cast to the model
+dtype (bf16 unless asked); norms, the router, the xLSTM gate weights and
+the Mamba-2 decay parameters in f32.  Every parameter is trainable;
 serving runs under ``torch.inference_mode()``.  The reference's
 sequence-sharding constraint (``seq_shard_acts``) is identity on one
 device and has no counterpart here.
-
-The other families raise ``NotImplementedError``: xLSTM, Mamba-2 hybrid,
-MLA, audio and vision wait for their slice (ROADMAP.md, Queue 1, the
-other model families).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import mamba2, mla, moe, multimodal, xlstm
 from repro_torch.models.config import ArchConfig
 
 
@@ -57,17 +60,31 @@ class Tree(nn.Module):
         return out
 
 
+def layer_groups(cfg: ArchConfig) -> dict:
+    """The model's stacked layer groups and their depths, as the
+    reference's ``init_params`` stacks them: ``mlstm`` / ``slstm`` of
+    ``(n+1)//2`` and ``n//2`` layers (xLSTM), ``mamba`` (the Zamba2
+    hybrid) or ``blocks`` (every transformer family)."""
+    n = cfg.n_layers
+    if cfg.xlstm:
+        return {"mlstm": (n + 1) // 2, "slstm": n // 2}
+    if cfg.ssm is not None:
+        return {"mamba": n}
+    return {"blocks": n}
+
+
 class LM(nn.Module):
-    """The parameters of one model: ``embed``, ``final_norm``, ``unembed``
-    and one :class:`Tree` per layer in ``blocks``."""
+    """The parameters of one model: a :class:`Tree` for each unstacked
+    part (``embed``, ``final_norm``, ``unembed``, ``shared_attn``,
+    ``frontend``, ``head``) and a ``ModuleList`` of one :class:`Tree` per
+    layer for each stacked group (:func:`layer_groups`), built from a
+    nested dict whose groups are lists of one dict per layer."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        self.embed = Tree(tree["embed"])
-        self.final_norm = Tree(tree["final_norm"])
-        if "unembed" in tree:
-            self.unembed = Tree(tree["unembed"])
-        self.blocks = nn.ModuleList(Tree(b) for b in tree["blocks"])
+        for k, v in tree.items():
+            self.add_module(k, nn.ModuleList(Tree(b) for b in v)
+                            if isinstance(v, list) else Tree(v))
 
     def __getitem__(self, key):
         return getattr(self, key)
@@ -75,26 +92,8 @@ class LM(nn.Module):
     def tree(self) -> dict:
         """The parameters as the nested dict :class:`LM` is built from
         (the same tensors): the trainer's and the checkpoint's view."""
-        out = {k: m.tree() for k, m in self._modules.items()
-               if k != "blocks"}
-        out["blocks"] = [b.tree() for b in self.blocks]
-        return out
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    what = None
-    if cfg.xlstm:
-        what = "xLSTM"
-    elif cfg.ssm is not None:
-        what = "Mamba-2 hybrid"
-    elif cfg.mla is not None:
-        what = "MLA attention"
-    elif cfg.frontend != "none" or cfg.encoder_only:
-        what = f"{cfg.frontend} frontend / encoder-only"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {what} family is not ported yet "
-            "(ROADMAP.md, Queue 1, the other model families)")
+        return {k: [b.tree() for b in m] if isinstance(m, nn.ModuleList)
+                else m.tree() for k, m in self._modules.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -104,28 +103,65 @@ def tfm_block_init(gen: torch.Generator, cfg: ArchConfig,
                    dtype=torch.bfloat16) -> dict:
     d = cfg.d_model
     dev = gen.device
-    blk = {"ln1": L.rmsnorm_init(d, dev), "ln2": L.rmsnorm_init(d, dev),
-           "attn": L.attn_init(gen, d, cfg.n_heads, cfg.n_kv, cfg.hd,
-                               dtype)}
+    blk = {"ln1": L.rmsnorm_init(d, dev), "ln2": L.rmsnorm_init(d, dev)}
+    if cfg.mla is not None:
+        blk["attn"] = mla.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype)
+    else:
+        blk["attn"] = L.attn_init(gen, d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                  dtype)
     if cfg.moe is not None:
         blk["moe"] = moe.moe_init(gen, d, cfg.moe, dtype)
+    elif cfg.encoder_only:
+        blk["mlp"] = L.gelu_mlp_init(gen, d, cfg.d_ff, dtype)
     else:
         blk["mlp"] = L.swiglu_init(gen, d, cfg.d_ff, dtype)
     return blk
+
+
+def mamba_block_init(gen, cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    return {"ln": L.rmsnorm_init(cfg.d_model, gen.device),
+            "mixer": mamba2.mamba2_init(gen, cfg.d_model, cfg.ssm, dtype)}
+
+
+def mlstm_block_init(gen, cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    return {"ln": L.rmsnorm_init(cfg.d_model, gen.device),
+            "mixer": xlstm.mlstm_init(gen, cfg.d_model, cfg.n_heads,
+                                      dtype=dtype)}
+
+
+def slstm_block_init(gen, cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    return {"ln": L.rmsnorm_init(cfg.d_model, gen.device),
+            "mixer": xlstm.slstm_init(gen, cfg.d_model, dtype)}
+
+
+_BLOCK_INITS = {"blocks": tfm_block_init, "mlstm": mlstm_block_init,
+                "slstm": slstm_block_init, "mamba": mamba_block_init}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 dtype=torch.bfloat16) -> LM:
     """Random parameters drawn from ``gen``, on ``gen``'s device (make the
     generator with ``torch.Generator(device=...).manual_seed(seed)``)."""
-    _check_supported(cfg)
     d = cfg.d_model
+    dev = gen.device
     tree = {"embed": L.embed_init(gen, cfg.vocab, d, dtype),
-            "final_norm": L.rmsnorm_init(d, gen.device)}
+            "final_norm": L.rmsnorm_init(d, dev)}
     if not cfg.tie_embeddings:
         tree["unembed"] = L.unembed_init(gen, d, cfg.vocab, dtype)
-    tree["blocks"] = [tfm_block_init(gen, cfg, dtype)
-                      for _ in range(cfg.n_layers)]
+    for name, n in layer_groups(cfg).items():
+        tree[name] = [_BLOCK_INITS[name](gen, cfg, dtype) for _ in range(n)]
+    if cfg.ssm is not None and not cfg.xlstm:
+        # the Zamba2 shared attention block (one copy, reused)
+        tree["shared_attn"] = {
+            "ln": L.rmsnorm_init(d, dev),
+            "attn": L.attn_init(gen, d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                dtype)}
+    if cfg.frontend == "audio":
+        tree["frontend"] = multimodal.audio_frontend_init(gen, 512, d, dtype)
+        tree["head"] = L.unembed_init(gen, d, cfg.vocab, dtype)
+    elif cfg.frontend == "vision":
+        tree["frontend"] = multimodal.vision_connector_init(
+            gen, cfg.d_frontend, d, dtype)
     return LM(tree)
 
 
@@ -156,49 +192,116 @@ def _remat(fn, cfg: ArchConfig):
 
 def _tfm_block(blk, x, cfg: ArchConfig, cache, ci):
     h = L.rmsnorm(blk["ln1"], x)
-    a, new_cache = L.attention(
-        blk["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, hd=cfg.hd,
-        theta=cfg.rope_theta, causal=True, cache=cache, cache_index=ci,
-        causal_skip=cfg.block_causal)
+    if cfg.mla is not None:
+        a, new_cache = mla.mla_attention(
+            blk["attn"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
+            theta=cfg.rope_theta, cache=cache, cache_index=ci,
+            causal_skip=cfg.block_causal)
+    else:
+        a, new_cache = L.attention(
+            blk["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, hd=cfg.hd,
+            theta=cfg.rope_theta, causal=not cfg.encoder_only, cache=cache,
+            cache_index=ci, causal_skip=cfg.block_causal)
     x = x + a
     h = L.rmsnorm(blk["ln2"], x)
     aux = None
     if cfg.moe is not None:
         f, aux = moe.moe_apply(blk["moe"], h, cfg.moe)
+    elif cfg.encoder_only:
+        f = L.gelu_mlp(blk["mlp"], h)
     else:
         f = L.swiglu(blk["mlp"], h)
     return x + f, new_cache, aux
 
 
+def _mixer(mix, blk, x, cfg: ArchConfig, group, i):
+    """One recurrent layer, ``x + mix(rmsnorm(x))`` (Mamba-2, mLSTM or
+    sLSTM).  With ``group`` (the group's stacked caches) it reads layer
+    ``i``'s state and writes the new state back in place."""
+    def body(x, cache=None):
+        y, new = mix(blk["mixer"], L.rmsnorm(blk["ln"], x), cache=cache)
+        return x + y, new
+    if group is None:
+        return _remat(lambda x: body(x)[0], cfg)(x)
+    x, new = body(x, {k: t[i] for k, t in group.items()})
+    for k, t in new.items():
+        group[k][i].copy_(t)
+    return x
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch):
-    """tokens -> (B, S, D) activations (the text path)."""
-    return L.embed(params["embed"], batch["tokens"])
+    """tokens (+ frames / patches) -> (B, S, D) activations: audio frames
+    through the frontend, vision patches through the connector and
+    prepended to the tokens, else the tokens alone (also the VLM's decode:
+    the vision context lives in the KV cache after prefill)."""
+    if cfg.frontend == "audio":
+        return multimodal.audio_frontend(params["frontend"], batch["frames"])
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision" and "patches" in batch:
+        vis = multimodal.vision_connector(params["frontend"],
+                                          batch["patches"])
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
             cache_index=None):
     """Returns (logits, caches, aux).
 
-    batch: {"tokens": (B, S)}.  caches: from :func:`make_caches` (a
-    leading layer axis) or None; updated in place and returned.
+    batch: {"tokens": (B, S)} (+ "frames" for audio, which replace the
+    tokens, or "patches" for the VLM).  caches: from :func:`make_caches`
+    (a leading layer axis) or None; updated in place and returned.
+
+    The xLSTM runs all its mLSTM layers, then all its sLSTM layers (the
+    reference's two scans).  The Zamba2 hybrid runs each run of
+    ``attn_every`` Mamba-2 layers followed by the *shared* attention block
+    (one copy of its weights, a KV cache for each application), then the
+    leftover Mamba-2 layers.  ``aux`` is the mean MoE load-balance loss
+    over the transformer layers, 0 for the recurrent families.
     """
-    _check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
-    auxs = []
-    for i, blk in enumerate(params.blocks):
-        if caches is None:
-            body = _remat(functools.partial(_tfm_block, blk, cfg=cfg,
-                                            cache=None, ci=cache_index), cfg)
-            x, _, aux = body(x)
-        else:
-            cch = {"k": caches["blocks"]["k"][i],
-                   "v": caches["blocks"]["v"][i]}
-            x, _, aux = _tfm_block(blk, x, cfg, cch, cache_index)
-        auxs.append(aux["aux_loss"] if aux else
-                    torch.zeros((), dtype=torch.float32, device=x.device))
-    aux = torch.stack(auxs).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.xlstm:
+        for name, apply in (("mlstm", xlstm.mlstm_apply),
+                            ("slstm", xlstm.slstm_apply)):
+            mix = functools.partial(apply, n_heads=cfg.n_heads)
+            group = None if caches is None else caches[name]
+            for i, blk in enumerate(params[name]):
+                x = _mixer(mix, blk, x, cfg, group, i)
+    elif cfg.ssm is not None:
+        mix = functools.partial(mamba2.mamba2_apply, cfg=cfg.ssm)
+        every = cfg.ssm.attn_every
+        shared = params["shared_attn"]
+        group = None if caches is None else caches["mamba"]
+        for i, blk in enumerate(params.mamba):
+            x = _mixer(mix, blk, x, cfg, group, i)
+            if (i + 1) % every:
+                continue
+            cch = None if caches is None else \
+                {k: t[i // every] for k, t in caches["shared_attn"].items()}
+            a, _ = L.attention(
+                shared["attn"], L.rmsnorm(shared["ln"], x),
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv, hd=cfg.hd,
+                theta=cfg.rope_theta, causal=True, cache=cch,
+                cache_index=None if cch is None else cache_index)
+            x = x + a
+    else:
+        auxs = []
+        for i, blk in enumerate(params.blocks):
+            if caches is None:
+                body = _remat(functools.partial(
+                    _tfm_block, blk, cfg=cfg, cache=None, ci=cache_index),
+                    cfg)
+                x, _, moe_aux = body(x)
+            else:
+                cch = {k: t[i] for k, t in caches["blocks"].items()}
+                x, _, moe_aux = _tfm_block(blk, x, cfg, cch, cache_index)
+            auxs.append(aux if moe_aux is None else moe_aux["aux_loss"])
+        aux = torch.stack(auxs).mean()
     x = L.rmsnorm(params["final_norm"], x)
-    if cfg.tie_embeddings:
+    if cfg.frontend == "audio":
+        logits = L.unembed(params["head"], x)
+    elif cfg.tie_embeddings:
         logits = L._mm(x, params["embed"]["e"].T).float()
     else:
         logits = L.unembed(params["unembed"], x)
@@ -208,10 +311,29 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+def _stacked(n: int, one: dict) -> dict:
+    """``n`` layers of the zero cache ``one``: a leading layer axis."""
+    return {k: t.new_zeros((n, *t.shape)) for k, t in one.items()}
+
+
 def make_caches(cfg: ArchConfig, b: int, s: int, dtype=torch.bfloat16,
                 device="cuda"):
-    """Decode caches with a leading layer axis, as the reference's."""
-    _check_supported(cfg)
-    flat = L.make_cache(cfg.n_layers * b, cfg.n_kv, s, cfg.hd, dtype, device)
-    return {"blocks": {k: t.view(cfg.n_layers, b, *t.shape[1:])
-                       for k, t in flat.items()}}
+    """Decode caches with a leading layer axis, as the reference's.  The
+    xLSTM's caches and the Mamba-2 state are f32 whatever ``dtype``."""
+    d = cfg.d_model
+    if cfg.xlstm:
+        n = layer_groups(cfg)
+        return {"mlstm": _stacked(n["mlstm"], xlstm.make_mlstm_cache(
+                    b, d, cfg.n_heads, device=device)),
+                "slstm": _stacked(n["slstm"], xlstm.make_slstm_cache(
+                    b, d, device=device))}
+    if cfg.ssm is not None:
+        return {"mamba": _stacked(cfg.n_layers, mamba2.make_mamba_cache(
+                    b, d, cfg.ssm, dtype, device)),
+                "shared_attn": _stacked(
+                    cfg.n_layers // cfg.ssm.attn_every,
+                    L.make_cache(b, cfg.n_kv, s, cfg.hd, dtype, device))}
+    one = (mla.make_mla_cache(b, s, cfg.mla, dtype, device)
+           if cfg.mla is not None else
+           L.make_cache(b, cfg.n_kv, s, cfg.hd, dtype, device))
+    return {"blocks": _stacked(cfg.n_layers, one)}

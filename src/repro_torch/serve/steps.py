@@ -1,8 +1,7 @@
-"""Inference steps: prefill and greedy decode.
+"""Inference steps: prefill, greedy decode and the encoder's encode.
 
-The port of ``make_prefill_step`` and ``make_decode_step`` from the
-reference's ``repro/serve/steps.py``.  The KV caches are updated in place
-(the reference donates them).
+The port of the reference's ``repro/serve/steps.py``.  The caches are
+updated in place (the reference donates them).
 """
 from __future__ import annotations
 
@@ -32,3 +31,12 @@ def make_decode_step(cfg: ArchConfig):
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], caches
     return decode_step
+
+
+def encode_step(cfg: ArchConfig):
+    """Encoder-only archs (hubert): a prefill-shaped full encode."""
+    def step(params, frames):
+        """frames: (B, S, 512) -> logits (B, S, vocab)."""
+        logits, _, _ = lm.forward(params, cfg, {"frames": frames})
+        return logits
+    return step

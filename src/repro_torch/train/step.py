@@ -1,6 +1,8 @@
 """The train step and its loss: the port of the reference's
-``repro/train/step.py`` for the model families the port has (dense and
-MoE text models; ``lm.forward`` raises for the others).
+``repro/train/step.py`` for the text models (dense, MoE, MLA, the
+Mamba-2 hybrid and the xLSTM).  The audio and vision families' batches
+and losses (frames, patches, the text-region mask) are not ported yet
+and raise (ROADMAP.md, Queue 1, training the new families).
 
 One step is the forward and backward of :func:`loss_fn` (optionally over
 microbatches, whose gradients are summed in f32 as the reference's
@@ -18,9 +20,17 @@ from repro_torch.models.layers import cross_entropy
 from repro_torch.train import optimizer as opt
 
 
+def _check_text_model(cfg: ArchConfig) -> None:
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training with the {cfg.frontend} frontend is not "
+            "ported yet (ROADMAP.md, Queue 1, training the new families)")
+
+
 def loss_fn(params: lm.LM, cfg: ArchConfig, batch, *, aux_weight=0.01):
     """Next-token cross-entropy plus ``aux_weight`` times the MoE
     load-balance loss.  Returns ``(loss, aux)``."""
+    _check_text_model(cfg)
     logits, _, aux = lm.forward(params, cfg, batch)
     loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     return loss + aux_weight * aux, aux
@@ -82,7 +92,7 @@ def synth_batch(cfg: ArchConfig, batch: int, seq: int,
     0).  ``jax.random``'s stream cannot be reproduced in torch, so tests
     that compare with the reference draw their batches from
     :class:`repro_torch.data.SyntheticTokenStream` instead."""
-    lm._check_supported(cfg)
+    _check_text_model(cfg)
     gen = gen if gen is not None else \
         torch.Generator(device="cuda").manual_seed(0)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,

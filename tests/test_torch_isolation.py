@@ -104,6 +104,10 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.models.layers.rmsnorm_init",
               "repro_torch.models.layers.rope_freqs",
               "repro_torch.models.lm.make_caches",
+              "repro_torch.models.mla.make_mla_cache",
+              "repro_torch.models.mamba2.make_mamba_cache",
+              "repro_torch.models.xlstm.make_mlstm_cache",
+              "repro_torch.models.xlstm.make_slstm_cache",
               "repro_torch.launch.serve.serve_batch",
               "repro_torch.launch.train.train",
               "repro_torch.convert.tree_from_numpy",

@@ -299,12 +299,3 @@ def test_init_params_shapes_and_dtypes():
             t = flat[".".join(keys)]
             assert tuple(t.shape) == leaf.shape
             assert str(t.dtype).removeprefix("torch.") == leaf.dtype.name
-
-
-@pytest.mark.parametrize("arch", ["xlstm_350m", "zamba2_1p2b",
-                                  "deepseek_v2_lite_16b", "hubert_xlarge",
-                                  "llava_next_mistral_7b"])
-def test_unported_families_raise(arch):
-    cfg = configs.get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(cfg, torch.Generator().manual_seed(0))

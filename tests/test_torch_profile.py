@@ -1,6 +1,7 @@
 """The decode-step and training-step profiles
 (``repro_torch.bench.profile_serve``, ``repro_torch.bench.profile_train``)
-run their loops end to end on the reduced Phi-3.5-MoE, here on the CPU.
+run their loops end to end on reduced configs (the decode step on
+Phi-3.5-MoE and on each other decoder family), here on the CPU.
 
 On the CPU the profiler records no device kernels, so only the loops and
 the shape of the rows are checked; the device numbers come from a run on
@@ -12,18 +13,32 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.bench.profile_serve import decode_profile  # noqa: E402
+from repro_torch.bench.profile_serve import (decode_profile,  # noqa: E402
+                                             serve_config)
 
 
-def test_decode_profile_runs_the_serving_loop_on_cpu():
-    cfg = configs.get_arch("phi35_moe_42b").reduced()
+@pytest.mark.parametrize("arch", ["phi35_moe_42b", "deepseek_v2_lite_16b",
+                                  "zamba2_1p2b", "xlstm_350m",
+                                  "llava_next_mistral_7b"])
+def test_decode_profile_runs_the_serving_loop_on_cpu(arch):
+    cfg = configs.get_arch(arch).reduced()
     row = decode_profile(cfg, "cpu", steps=2)
     assert row["device"] == "cpu" and row["steps"] == 2
+    assert row["arch"] == cfg.name
     assert row["wall_ms_per_step"] > 0
     assert row["kernel_launches_per_step"] == 0
     assert set(row) >= {"device_ms_per_step", "device_busy_share",
                         "group_matmul_device_share", "top_kernels",
                         "top_device_ops"}
+
+
+def test_serve_config_cuts_only_phi():
+    """``--arch`` builds the full-width config, cut in depth only where
+    ``chip_smoke.py``'s serving run cuts it (Phi-3.5-MoE, 32 -> 4)."""
+    assert serve_config("phi3.5-moe-42b-a6.6b").n_layers == 4
+    cfg = serve_config("deepseek-v2-lite-16b")
+    assert cfg == configs.get_arch("deepseek_v2_lite_16b")
+    assert cfg.n_layers == 27 and cfg.d_model == 2048
 
 
 def test_train_profile_runs_the_train_step_on_cpu():
