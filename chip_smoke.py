@@ -92,16 +92,42 @@ Phases (any failure raises and the script exits non-zero):
    families in f32 are held to ``src/repro_torch/golden/families_reduced
    .json`` (served tokens up to the 1e-3 margin, encode and vision
    logits within 1e-4);
-8. time each kernel and its plain version with CUDA events over
+8. the families' training (``[train-families]``), one at a time with
+   memory freed between them and the launch counts from 0 in each, each
+   leg of ``repro_torch.bench.profile_train.FAMILY_LEGS``: bf16 parameters
+   from a generator seeded with 0 and 4 AdamW steps (lr 3e-4; LLaVA's
+   2e-5, its own fine-tuning rate) of
+   ``make_train_step`` on one ``synth_batch`` of that generator:
+   HuBERT-XLarge whole (2 x 512 frames), LLaVA-NeXT-Mistral-7B cut to 8
+   layers (its 2,880 patches and 16 tokens), DeepSeek-V2-Lite cut to 4
+   layers, Zamba2-1.2B and xLSTM-350M whole (4 x 128 tokens each; the
+   xLSTM recomputes each layer in the backward); every loss finite and
+   the last under the first, ``group_matmul`` launched for each of
+   DeepSeek's expert products forward and for its dx, its layer-0
+   products of the second step held to the plain version as the Phi
+   ones, and no other family launching it; then the reduced families in
+   f32 held to ``src/repro_torch/golden/train_families_reduced.json``
+   (rtol ``golden.TRAIN_RTOL``, 1e-5);
+9. the static golden engine (``[static]``): grid A's 13 nexus lanes at
+   4x4 through ``MachineConfig(traced_modes=False, traced_geometry=
+   False)``, every lane equal to ``paper_grid.json`` bit for bit and
+   ``machine.is_idle`` of the final state true, with the wall, the engine
+   ticks and the launches and milliseconds of a static tick beside a
+   traced tick of the same lanes; then the scale layer's oracles
+   (``[sparse]``): the six ops of ``repro_torch.sparse.ops`` on
+   ``random_csr`` matrices of 1,024 x 1,024 at 1% against float64 numpy
+   within 1e-4 (the f32 ``bcsr_spmm`` leg of phase 3 is also held to
+   ``sparse.ops.bcsr_spmm``);
+10. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
    the training shapes, whose plain version takes tens of ms), at the
    f32 legs' shapes and, for ``group_matmul``, also at the serving
-   paths' decode and prefill shapes and the training path's forward and
+   paths' decode and prefill shapes and the training paths' forward and
    dx shapes; compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-9. print the kernels line (a row per leg with the legs' launches,
+11. print the kernels line (a row per leg with the legs' launches,
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
@@ -109,8 +135,10 @@ Phases (any failure raises and the script exits non-zero):
    rows at the training leg's ``wg`` shapes, with ``wo`` in each, with the
    training path's forward and dx launches, and a
    ``group_matmul_deepseek_serve`` row as the Phi one at DeepSeek's
-   shapes with its serve's launches), the card line and, last, the ok
-   line.
+   shapes with its serve's launches, and ``group_matmul_deepseek_train``
+   / ``group_matmul_deepseek_train_dx`` rows as the Phi training ones at
+   DeepSeek's training shapes, with their launches a step), the card line
+   and, last, the ok line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
 is not available.
@@ -137,8 +165,12 @@ from repro_torch.bench import golden, harness  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
+from repro_torch.bench.profile_engine import (grid_a_engine,  # noqa: E402
+                                              profile_ticks)
+from repro_torch.bench.profile_train import FAMILY_LEGS  # noqa: E402
 from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
+from repro_torch.core import machine  # noqa: E402
 from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
@@ -150,6 +182,10 @@ from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.train_100m import tokens_per_s  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.serve.steps import encode_step, make_prefill_step  # noqa: E402
+from repro_torch.sparse import ops as sparse_ops  # noqa: E402
+from repro_torch.sparse.formats import BCSR, random_csr  # noqa: E402
+from repro_torch.train.optimizer import adamw_init, tree_leaves  # noqa: E402
+from repro_torch.train.step import make_train_step, synth_batch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores and dense bf16 FLOP/s on them.  A bound takes the peak of
@@ -184,6 +220,9 @@ VISION_TOKENS = 16
 #: version: elementwise (rtol = atol) and, since a backward's dx is many
 #: orders of magnitude below 1, also max |err| over max |plain|
 BF16_TOL = 2e-2
+#: the ``[sparse]`` oracles against float64 numpy (rtol = atol), the f32
+#: tolerance of the kernel legs
+SPARSE_TOL = 1e-4
 KERNELS = {
     "bcsr_spmm": dict(wrapper=bcsr_spmm,
                       source="src/repro_torch/csrc/bcsr_spmm.cu",
@@ -613,6 +652,42 @@ def run_reduced_serve() -> int:
     return compared
 
 
+def check_train_launches(rec: ExpertCalls, launches: int, per_step: int,
+                         steps: int) -> int:
+    """``group_matmul`` launched once for each expert product of the
+    forwards (``per_step`` a step) and once for each one's dx; returns the
+    forward launches."""
+    forward = rec.n
+    if forward != per_step * steps or launches != 2 * forward:
+        raise AssertionError(
+            f"group_matmul launched {launches} times for {forward} expert "
+            f"products in {steps} steps (want {per_step} forward and "
+            f"{per_step} dx launches a step)")
+    return forward
+
+
+def train_expert_checks(rec: ExpertCalls, path: str) -> tuple[dict, dict]:
+    """The recorded layer-0 ``wg`` / ``wi`` / ``wo`` products of a training
+    step and their backward's dx held to the plain version (dx as ``dy @
+    w^T``); returns max |err| and the full check by product."""
+    errs, held = {}, {}
+    for n, r in sorted(rec.calls.items()):
+        tag = ["wg", "wi", "wo"][n % 3]
+        if "dy" not in r or "dx" not in r:
+            raise AssertionError(f"no gradient reached the {tag} product")
+        w = r["w"]
+        checks = {
+            f"forward_{tag}": (r["out"], plain_grouped(r["xe"], w)),
+            f"dx_{tag}": (r["dx"].float(), plain_grouped(
+                r["dy"].to(w.dtype), w.transpose(1, 2).contiguous()))}
+        for name, (got, want) in checks.items():
+            held[name] = check_expert(f"{path}, {name}", got, want)
+            errs[name] = held[name]["max_abs_err"]
+    if len(errs) != 6:
+        raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
+    return errs, held
+
+
 def run_train_moe() -> tuple[dict, dict]:
     """Phi-3.5-MoE at full width, depth cut as in :data:`TRAIN_CFG`,
     trained :data:`TRAIN_TRAFFIC` steps through ``train()`` on the card,
@@ -644,27 +719,8 @@ def run_train_moe() -> tuple[dict, dict]:
         raise AssertionError(f"non-finite losses {losses}")
     if not np.mean(losses[-2:]) < np.mean(losses[:2]):
         raise AssertionError(f"the loss did not fall: {losses}")
-    forward = rec.n
-    if forward != per_step * steps or launches != 2 * forward:
-        raise AssertionError(
-            f"group_matmul launched {launches} times for {forward} expert "
-            f"products in {steps} steps (want {per_step} forward and "
-            f"{per_step} dx launches a step)")
-    errs, held = {}, {}
-    for n, r in sorted(rec.calls.items()):
-        tag = ["wg", "wi", "wo"][n % 3]
-        if "dy" not in r or "dx" not in r:
-            raise AssertionError(f"no gradient reached the {tag} product")
-        w = r["w"]
-        checks = {
-            f"forward_{tag}": (r["out"], plain_grouped(r["xe"], w)),
-            f"dx_{tag}": (r["dx"].float(), plain_grouped(
-                r["dy"].to(w.dtype), w.transpose(1, 2).contiguous()))}
-        for name, (got, want) in checks.items():
-            held[name] = check_expert(f"training path, {name}", got, want)
-            errs[name] = held[name]["max_abs_err"]
-    if len(errs) != 6:
-        raise AssertionError(f"recorded {sorted(rec.calls)} expert calls")
+    forward = check_train_launches(rec, launches, per_step, steps)
+    errs, held = train_expert_checks(rec, "training path")
     steady = res.step_s[1:]
     tokens = TRAIN_TRAFFIC["batch"] * TRAIN_TRAFFIC["seq"]
     ms = statistics.median(steady) * 1e3
@@ -933,16 +989,221 @@ def run_families_reduced() -> dict:
     return out
 
 
-def training_shape_times(stats: dict, calls: dict) -> list:
-    """The ``group_matmul_train`` and ``group_matmul_train_dx`` rows: the
-    kernel on the training leg's recorded layer-0 operands (bf16, tile_m
-    128, capacity 160 padded to 256), forward ``wg`` 4096 -> 6400 in the
-    row's own keys and ``wo`` 6400 -> 4096 beside it, and the backward's
-    dx (``dy @ w^T`` on the contiguous transposed copy, whose own time is
-    ``transpose_ms``) for both; launches and max |err| are the training
-    path's."""
+def run_train_family(arch: str) -> tuple[dict, dict]:
+    """One family's ``[train-families]`` leg (:data:`FAMILY_LEGS`): bf16
+    parameters from a generator seeded with 0, one ``synth_batch`` from it
+    passed at every step, AdamW through ``make_train_step``, every launch
+    count from 0; every loss finite and the last under the first.  For the
+    MoE family ``group_matmul`` must run each expert product forward and
+    for its dx, and layer 0's products of step :data:`TRAIN_RECORD_STEP`
+    are held to the plain version; no other family may launch it.
+    Returns the stats and the recorded expert products."""
+    cfg, traffic = FAMILY_LEGS[arch]
+    steps = traffic["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    n_params = sum(p.numel() for p in tree_leaves(params.tree()))
+    batch = synth_batch(cfg, traffic["batch"], traffic["seq"], gen)
+    state = adamw_init(params.tree())
+    step = make_train_step(cfg, lr=traffic["lr"])
+    per_step = 3 * cfg.n_layers if cfg.moe is not None else 0
+    first = per_step * TRAIN_RECORD_STEP
+    rec = ExpertCalls([first, first + 1, first + 2] if per_step else [])
+    moe.grouped_expert_matmul = rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for meta in KERNELS.values():
+        meta["wrapper"].launches = 0
+    step_s, metrics = [], []
+    try:
+        for _ in range(steps):
+            t0 = time.time()
+            params, state, m = step(params, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_s.append(time.time() - t0)
+    finally:
+        moe.grouped_expert_matmul = rec.inner
+    launches = group_matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses}")
+    positions = traffic["batch"] * (
+        batch["tokens"].shape[1] + cfg.n_patches
+        if cfg.frontend == "vision" else traffic["seq"])
+    ms = statistics.median(step_s[1:]) * 1e3
+    stats = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        remat=cfg.remat, params=n_params, **traffic,
+        positions_per_step=positions,
+        step_ms=dict(median=ms, min=min(step_s[1:]) * 1e3,
+                     max=max(step_s[1:]) * 1e3, first=step_s[0] * 1e3,
+                     runs=[t * 1e3 for t in step_s]),
+        tokens_per_s=positions / (ms / 1e3), peak_mem_bytes=peak,
+        losses=losses, aux_losses=[m["aux_loss"] for m in metrics],
+        grad_norms=[m["grad_norm"] for m in metrics],
+        group_matmul_launches=launches)
+    if per_step:
+        forward = check_train_launches(rec, launches, per_step, steps)
+        stats["max_abs_err"], stats["held_to_plain"] = train_expert_checks(
+            rec, f"{cfg.name} training path")
+        stats.update(launches_forward=forward, launches_dx=launches - forward)
+    elif launches or rec.n:
+        raise AssertionError(f"{cfg.name} has no MoE layer, yet "
+                             f"group_matmul was launched {launches} times")
+    print(f"[train-families] {json.dumps(stats)}", flush=True)
+    return stats, rec.calls
+
+
+def run_train_families() -> tuple[dict, dict]:
+    """The ``[train-families]`` phase: each family's leg, one at a time
+    with memory freed between them; returns the stats by arch and the MoE
+    family's recorded expert products."""
+    stats, calls = {}, None
+    for arch in FAMILY_LEGS:
+        stats[arch], recorded = run_train_family(arch)
+        if recorded:
+            calls = recorded
+        del recorded
+        torch.cuda.empty_cache()
+    return stats, calls
+
+
+def run_train_families_reduced() -> dict:
+    """The reduced families in f32 on the card, each held to the
+    reference's losses, aux losses and gradient norms in
+    ``train_families_reduced.json`` (rtol ``golden.TRAIN_RTOL``)."""
+    want = golden.load_train_families_golden()
+    out = {}
+    for arch in golden.TRAIN_FAMILIES_SPEC["archs"]:
+        got = golden.train_family_run(arch, "cuda")
+        out[arch] = golden.check_train(got["loss"], got["aux_loss"],
+                                       got["grad_norm"], want["archs"][arch])
+    print(f"[train-families-reduced] each family's losses, aux losses and "
+          f"grad norms within {golden.TRAIN_RTOL} of the golden record; "
+          f"largest relative errors {json.dumps(out)}", flush=True)
+    return out
+
+
+class FinalState:
+    """Wraps ``machine._get_engine`` so that the engines it hands out keep
+    the final state of their last call in ``self.st``."""
+
+    def __init__(self):
+        self.inner, self.st = machine._get_engine, None
+
+    def __call__(self, *args, **kw):
+        engine = self.inner(*args, **kw)
+
+        def run(*a):
+            out = engine(*a)
+            self.st = out[0]
+            return out
+        return run
+
+
+def run_static() -> dict:
+    """The ``[static]`` phase: grid A's nexus lanes at 4x4 through the
+    static golden engine (``traced_modes=False``, ``traced_geometry=
+    False``) on the card, every lane held to ``paper_grid.json`` bit for
+    bit and ``is_idle`` of the final state true; then the launches and
+    milliseconds of one static tick beside one traced tick of the same
+    lanes (``profile_engine --static``)."""
+    want = golden.load_golden()["grid_a"]["lanes"]
+    wls = golden.grid_workloads(golden.GRIDS["grid_a"], make_all())
+    base = machine.MachineConfig(traced_modes=False, traced_geometry=False)
+    cap = FinalState()
+    machine._get_engine = cap
+    tel: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        lanes, wall = harness.run_grid_lanes(
+            wls, ["nexus"], base_cfg=base, max_cycles=golden.MAX_CYCLES,
+            device="cuda", telemetry=tel)
+    finally:
+        machine._get_engine = cap.inner
+    got = {golden.lane_key(ln.workload.name, ln.mode, ln.size):
+           golden.lane_record(ln.result) for ln in lanes}
+    if len(got) != 13 or not set(got) <= set(want):
+        raise AssertionError(f"static lanes {sorted(got)}")
+    golden.check_lanes(got, {k: want[k] for k in got})
+    if cap.st is None or not bool(machine.is_idle(cap.st)):
+        raise AssertionError("the static engine's final state is not idle")
+    dev = torch.device("cuda")
+    ticks = {name: profile_ticks(*grid_a_engine(dev, ["nexus"], static), 4,
+                                 dev)
+             for name, static in (("static", True), ("traced", False))}
+    row = dict(lanes=len(lanes), wall_s=wall,
+               engine_ticks=tel["stepped_pe_ticks"] // (len(lanes) * 16),
+               is_idle=True, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **{f"{k}_{f}": v[f] for k, v in ticks.items() for f in (
+                   "wall_ms_per_tick", "device_ms_per_tick",
+                   "kernel_launches_per_tick")})
+    print(f"[static] {len(lanes)} nexus lanes of grid A on the static engine "
+          f"match the golden records, final state idle; {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+def run_sparse() -> dict:
+    """The ``[sparse]`` phase: the six oracles of ``sparse.ops`` on the card
+    on ``random_csr`` matrices of 1,024 x 1,024 at 1%, each within
+    :data:`SPARSE_TOL` (rtol = atol) of float64 numpy on the same
+    values."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = n = 1024
+    a = random_csr(gen, m, n, 0.01, cap=12_000)
+    b = random_csr(gen, m, n, 0.01)
+    x = torch.randn(n, generator=gen, device="cuda")
+    bd = torch.randn((n, 64), generator=gen, device="cuda")
+    ad = torch.randn((m, 64), generator=gen, device="cuda")
+    bt = torch.randn((64, n), generator=gen, device="cuda")
+    blk = BCSR.from_dense(a.to_dense().cpu().numpy(), block=(8, 128),
+                          device="cuda")
+
+    def f64(t):
+        return t.double().cpu().numpy()
+
+    a64, b64 = f64(a.to_dense()), f64(b.to_dense())
+    live = np.arange(a.col.shape[0]) < a.nnz
+    rows, cols = f64(a.row_ids).astype(int), f64(a.col).astype(int)
+    checks = {
+        "spmv": (sparse_ops.spmv(a, x), a64 @ f64(x)),
+        "spmm": (sparse_ops.spmm(a, bd), a64 @ f64(bd)),
+        "spmspm_via_dense": (sparse_ops.spmspm_via_dense(a, b), a64 @ b64),
+        "spmadd": (sparse_ops.spmadd(a, b), a64 + b64),
+        "sddmm": (sparse_ops.sddmm(ad, bt, a), np.where(
+            live, (f64(ad) @ f64(bt))[rows, cols], 0)),
+        "bcsr_spmm": (sparse_ops.bcsr_spmm(blk, bd), a64 @ f64(bd)),
+    }
+    errs = {}
+    for name, (got, ref) in checks.items():
+        got = f64(got)
+        errs[name] = float(np.abs(got - ref).max())
+        if got.shape != ref.shape or not np.allclose(
+                got, ref, rtol=SPARSE_TOL, atol=SPARSE_TOL):
+            raise AssertionError(f"sparse.ops.{name}: max |err| "
+                                 f"{errs[name]} over {SPARSE_TOL}")
+    row = dict(shape=[m, n], nnz=a.nnz, cap=int(a.col.shape[0]),
+               b_nnz=b.nnz, blocks=blk.n_blocks, max_abs_err=errs)
+    print(f"[sparse] the six oracles match float64 numpy within "
+          f"{SPARSE_TOL}; {json.dumps(row)}", flush=True)
+    return row
+
+
+def training_shape_times(stats: dict, calls: dict,
+                         name: str = "group_matmul_train") -> list:
+    """The ``<name>`` and ``<name>_dx`` rows: the kernel on a training
+    leg's recorded layer-0 operands of step :data:`TRAIN_RECORD_STEP`
+    (bf16; ``group_matmul_train``: Phi-3.5-MoE, tile_m 128, capacity 160
+    padded to 256, 4096 <-> 6400; ``group_matmul_deepseek_train``:
+    DeepSeek-V2-Lite, 64 experts, 2048 <-> 1408), forward ``wg`` in the
+    row's own keys and ``wo`` beside it, and the backward's dx (``dy @
+    w^T`` on the contiguous transposed copy, whose own time is
+    ``transpose_ms``) for both; launches (a step beside the leg's) and max
+    |err| are the training path's."""
     meta = KERNELS["group_matmul"]
-    first = 3 * TRAIN_CFG.n_layers * TRAIN_RECORD_STEP
+    first = 3 * stats["n_layers"] * TRAIN_RECORD_STEP
     fwd, dx = {}, {}
     few = dict(reps=7, plain_reps=3, inner=3)
     for n, tag in ((first, "wg"), (first + 2, "wo")):
@@ -956,13 +1217,14 @@ def training_shape_times(stats: dict, calls: dict) -> list:
         del wt
     errs = stats["max_abs_err"]
     rows = []
-    for name, times, kind, count in (
-            ("group_matmul_train", fwd, "forward", "launches_forward"),
-            ("group_matmul_train_dx", dx, "dx", "launches_dx")):
+    for row, times, kind, count in (
+            (name, fwd, "forward", "launches_forward"),
+            (f"{name}_dx", dx, "dx", "launches_dx")):
         wg = times.pop("wg")
         rows.append(dict(
-            name=name, route="cuda", source=meta["source"],
+            name=row, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=stats[count],
+            launches_per_step=stats[count] / stats["steps"],
             max_abs_err=max(v for k, v in errs.items()
                             if k.startswith(kind)),
             dtype="bfloat16", **wg, **times))
@@ -1120,12 +1382,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[families] phase {time.time() - t_fam:.1f} s", flush=True)
 
+    # --- the families' training, launch counts from zero in each leg -------
+    t_tf = time.time()
+    fam_trained, calls = run_train_families()
+    fam_train_reduced = run_train_families_reduced()
+    deepseek_train_rows = training_shape_times(
+        fam_trained["deepseek-v2-lite-16b"], calls,
+        name="group_matmul_deepseek_train")
+    for row in deepseek_train_rows:
+        print(f"[kernel] {json.dumps(row)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[train-families] phase {time.time() - t_tf:.1f} s", flush=True)
+
+    # --- the static golden engine and the scale layer's oracles -------------
+    t_st = time.time()
+    static = run_static()
+    print(f"[static] phase {time.time() - t_st:.1f} s", flush=True)
+    sparse_row = run_sparse()
+
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows.append(serve_row)
     rows += train_rows
     rows.append(deepseek_row)
+    rows += deepseek_train_rows
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"simulator": sim, "serve": {
         k: served[k] for k in ("serves", "prefill_s", "decode_s",
@@ -1142,7 +1424,12 @@ def main() -> int:
             "prefill_s", "decode_s", "decode_tok_s", "wall_s",
             "peak_mem_bytes", "group_matmul_launches") if f in v}
             for k, v in families.items()},
-        "families_reduced": families_reduced}))
+        "families_reduced": families_reduced,
+        "train_families": {k: {f: v[f] for f in (
+            "step_ms", "tokens_per_s", "peak_mem_bytes", "losses",
+            "group_matmul_launches")} for k, v in fam_trained.items()},
+        "train_families_reduced": fam_train_reduced,
+        "static": static, "sparse": sparse_row}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,14 @@ f32 parameters from :func:`serve_params_numpy` and the batches of
 ``SyntheticTokenStream``, on the CPU: each step's loss, aux loss and
 gradient norm.  The card has no JAX, so it is held to this file with
 :func:`check_train` (:data:`TRAIN_RTOL`).
+
+**Reduced family training** (``golden/train_families_reduced.json``): the
+reference's ``make_train_step`` on the reduced DeepSeek-V2-Lite, Zamba2,
+xLSTM, HuBERT and LLaVA (:data:`TRAIN_FAMILIES_SPEC`) in f32 on the CPU,
+each from :func:`serve_params_numpy`'s parameters on one numpy-seeded
+batch (:func:`train_family_batch`) passed at every step: each step's loss,
+aux loss and gradient norm.  :func:`train_family_run` makes the port's
+run, and :func:`check_train` holds it to the record.
 """
 from __future__ import annotations
 
@@ -75,6 +83,8 @@ SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
 SERVICE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "service.json")
 TRAIN_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "train_reduced.json")
 FAMILIES_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "families_reduced.json")
+TRAIN_FAMILIES_GOLDEN_PATH = os.path.join(GOLDEN_DIR,
+                                          "train_families_reduced.json")
 #: the reduced training run: arch, parameter seed, data stream and steps
 #: (the batches are ``SyntheticTokenStream(vocab, batch, seq, seed=
 #: data_seed)``'s, as ``train()``'s pipeline draws them)
@@ -86,6 +96,16 @@ TRAIN_SPEC = dict(arch="phi3.5-moe-42b-a6.6b", param_seed=0, data_seed=0,
 #: tiny gradient into whole steps of ``lr``; the port's CPU run is within
 #: 6e-7 of the reference over the 8 steps
 TRAIN_RTOL = 1e-5
+#: the reduced families' training record: ``steps`` AdamW steps of each
+#: arch at ``lr`` with ``aux_weight``, on one batch of ``batch`` x ``seq``
+#: (the VLM's text is ``max(seq - n_patches, 8)`` tokens after its
+#: patches, as ``synth_batch`` cuts it) drawn from
+#: ``default_rng(input_seed)``, repeated at every step so the loss falls
+TRAIN_FAMILIES_SPEC = dict(
+    archs=["deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-350m",
+           "hubert-xlarge", "llava-next-mistral-7b"],
+    param_seed=0, input_seed=0, steps=4, lr=3e-4, aux_weight=0.01,
+    batch=2, seq=16)
 #: the service legs' traffic: ``fig17_traffic(copies=2)``
 SERVICE = dict(traffic="fig17", copies=2)
 #: the reduced serving run: arch, traffic of examples/serve_moe.py, seed
@@ -462,6 +482,63 @@ def check_logits(got, want: dict, tol: float = FAMILIES_TOL) -> float:
     return err
 
 
+def train_family_batch(cfg, *, batch: int | None = None,
+                       seed: int | None = None) -> dict:
+    """The numpy batch of a reduced family's training record (f32 frames and
+    patches, int32 ids; ``batch`` rows, by default the record's, from
+    ``default_rng(seed)``, by default ``TRAIN_FAMILIES_SPEC["input_seed"]``),
+    shaped as ``synth_batch`` shapes it: the encoder's ``frames``,
+    ``labels`` and a ``mask`` of ones, the VLM's ``patches`` before its
+    ``tokens`` (its own ``labels``), a text model's ``tokens`` (its own
+    ``labels``)."""
+    spec = TRAIN_FAMILIES_SPEC
+    rng = np.random.default_rng(spec["input_seed"] if seed is None else seed)
+    b, s = batch or spec["batch"], spec["seq"]
+
+    def ids(shape):
+        return rng.integers(0, cfg.vocab, shape).astype(np.int32)
+
+    if cfg.frontend == "audio":
+        return {"frames": rng.standard_normal((b, s, 512)).astype(np.float32),
+                "labels": ids((b, s)), "mask": np.ones((b, s), np.float32)}
+    if cfg.frontend == "vision":
+        toks = ids((b, max(s - cfg.n_patches, 8)))
+        return {"tokens": toks, "labels": toks, "patches": rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_frontend)).astype(np.float32)}
+    toks = ids((b, s))
+    return {"tokens": toks, "labels": toks}
+
+
+def train_family_run(arch: str, device) -> dict:
+    """The port's run of one arch of the reduced families' training record
+    on ``device`` (f32): its ``loss``, ``aux_loss`` and ``grad_norm`` at
+    each step, as floats."""
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+    spec = TRAIN_FAMILIES_SPEC
+    cfg = configs.get_arch(configs.ALIASES[arch]).reduced()
+    params = params_from_numpy(serve_params_numpy(cfg, spec["param_seed"]),
+                               cfg, device)
+    state = adamw_init(params.tree())
+    step = make_train_step(cfg, lr=spec["lr"], aux_weight=spec["aux_weight"])
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in train_family_batch(cfg).items()}
+    out: dict = {"loss": [], "aux_loss": [], "grad_norm": []}
+    for _ in range(spec["steps"]):
+        params, state, m = step(params, state, batch)
+        for k in out:
+            out[k].append(float(m[k]))
+    return out
+
+
+def load_train_families_golden(path: str = TRAIN_FAMILIES_GOLDEN_PATH
+                               ) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
 def load_train_golden(path: str = TRAIN_GOLDEN_PATH) -> dict:
     with open(path) as f:
         return json.load(f)
@@ -490,7 +567,12 @@ def check_train(losses, aux_losses, grad_norms, want: dict,
 
 def train_rel_errs(losses, aux_losses, grad_norms, want: dict) -> dict:
     """The largest |got - golden| / |golden| over the steps of the loss, the
-    aux loss and the gradient norm (over the steps both have)."""
+    aux loss and the gradient norm (over the steps both have); a golden 0
+    (the aux loss of a model without experts) counts 0 if met exactly and
+    inf otherwise."""
+    def rel(g, r):
+        return abs(g - r) / abs(r) if r else (0.0 if g == r else float("inf"))
+
     got = dict(loss=losses, aux_loss=aux_losses, grad_norm=grad_norms)
-    return {k: max((abs(g - r) / abs(r) for g, r in zip(vals, want[k])),
-                   default=0.0) for k, vals in got.items()}
+    return {k: max((rel(g, r) for g, r in zip(vals, want[k])), default=0.0)
+            for k, vals in got.items()}

@@ -16,7 +16,8 @@ Inputs come from ``numpy.random.default_rng(seed)`` in the reference's
 draw order (the expert product's after the block-sparse legs').  Each
 leg runs the kernel wrapper and holds it against the plain version on
 the same inputs (rtol = atol = 1e-4 for f32, as the reference; 2e-2 for
-bf16, as its kernel tests).
+bf16, as its kernel tests); the f32 ``bcsr_spmm`` leg is also held to
+the scale layer's oracle, ``repro_torch.sparse.ops.bcsr_spmm``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain, group_matmul,
                                  group_matmul_plain, sddmm_blocks,
                                  sddmm_blocks_plain)
+from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.formats import BCSR
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -135,7 +137,9 @@ def work(name: str, args: dict) -> dict:
 def main(device="cuda", dtypes=(torch.float32, torch.bfloat16),
          seed: int = 0) -> dict:
     """Run both legs in every dtype; raise if a kernel disagrees with its
-    plain version.  Returns ``{name: {dtype_name: max_abs_err}}``."""
+    plain version (or, the f32 ``bcsr_spmm``, with the oracle of
+    ``sparse.ops``).  Returns ``{name: {dtype_name: max_abs_err}}``, and
+    the oracle's under ``bcsr_spmm``'s ``"oracle_float32"``."""
     out: dict = {"bcsr_spmm": {}, "sddmm_blocks": {}, "group_matmul": {}}
     for dtype in dtypes:
         legs = leg_inputs(dtype, device, seed)
@@ -151,4 +155,12 @@ def main(device="cuda", dtypes=(torch.float32, torch.bfloat16),
                     f"{(got - want).abs().max().item()} over tolerance {tol}")
             out[name][str(dtype).removeprefix("torch.")] = \
                 (got - want).abs().max().item()
+            if name == "bcsr_spmm" and dtype == torch.float32:
+                oracle = sparse_ops.bcsr_spmm(args["a"], args["b"])
+                err = (got - oracle).abs().max().item()
+                if not torch.allclose(got, oracle, rtol=tol, atol=tol):
+                    raise AssertionError(
+                        f"bcsr_spmm {dtype}: max |err| {err} from the "
+                        f"sparse.ops oracle over tolerance {tol}")
+                out[name]["oracle_float32"] = err
     return out

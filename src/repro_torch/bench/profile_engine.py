@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.bench.profile_engine [--ticks 64]
     PYTHONPATH=src python -m repro_torch.bench.profile_engine --fast-forward
+    PYTHONPATH=src python -m repro_torch.bench.profile_engine --static
 
 Builds grid A of the golden file (13 workloads x nexus / tia /
 tia_valiant at 4x4, 39 lanes), warms the batched engine up, then steps
@@ -10,6 +11,11 @@ tia_valiant at 4x4, 39 lanes), warms the batched engine up, then steps
 JSON line with the wall milliseconds per tick, the device (kernel)
 milliseconds per tick, the device's busy share, the kernel launches per
 tick and the operators that take the most device time.
+
+``--static`` profiles grid A's 13 nexus lanes twice instead: on the
+static golden engine (``traced_modes=False``, ``traced_geometry=False``:
+the mode and the 4x4 mesh baked into the cycle) and on the traced one,
+and prints one JSON line with both records.
 
 ``--fast-forward`` profiles the chain leg of ``golden/sweeps.json``
 instead (8 lanes of a scrambled 512-node pointer chase at 8x8) on the
@@ -20,6 +26,7 @@ records.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -35,16 +42,23 @@ from repro_torch.core.batch import stack_workloads
 from repro_torch.core.fastforward import make_fast_forward
 
 
-def grid_a_engine(device):
-    """The grid-A batch, ready to step: ``(step, st, lanes)`` where
-    ``step(st)`` is one engine tick."""
+def grid_a_engine(device, modes=None, static: bool = False):
+    """The grid-A batch (its lanes of ``modes``, by default all three),
+    ready to step: ``(step, st, lanes)`` where ``step(st)`` is one engine
+    tick; ``static`` steps the static golden engine, whose config bakes in
+    the one mode of ``modes`` and the 4x4 mesh."""
     wls = golden.grid_workloads(golden.GRIDS["grid_a"], make_all())
-    modes = list(machine.FABRIC_MODES)
+    modes = list(machine.FABRIC_MODES) if modes is None else list(modes)
     built = [wl.build(machine.MachineConfig(mem_words=wl.mem_words),
                       _placement_for(m)) for m in modes for wl in wls]
     lane_modes = [m for m in modes for _ in wls]
     cfg = machine.MachineConfig(mem_words=max(w.mem_words for w in wls),
                                 max_cycles=golden.MAX_CYCLES)
+    if static:
+        (mode,) = set(modes)
+        cfg = dataclasses.replace(cfg, traced_modes=False,
+                                  traced_geometry=False,
+                                  **machine.mode_flags(mode))
     wb = stack_workloads(built, modes=lane_modes)
     n = wb.n_pes
 
@@ -141,9 +155,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--fast-forward", action="store_true",
                     help="profile the chain leg's compressed and plain "
                          "ticks instead of grid A's")
+    ap.add_argument("--static", action="store_true",
+                    help="profile grid A's nexus lanes on the static and "
+                         "on the traced engine instead")
     ns = ap.parse_args(argv)
     dev = torch.device(ns.device)
-    if ns.fast_forward:
+    if ns.static:
+        out = {name: profile_ticks(
+            *grid_a_engine(dev, ["nexus"], static), ns.ticks, dev)
+            for name, static in (("static", True), ("traced", False))}
+    elif ns.fast_forward:
         out = {f"chain_{name}": profile_ticks(
             *chain_engine(dev, ff), ns.ticks, dev)
             for name, ff in (("fast_forward", True), ("plain", False))}

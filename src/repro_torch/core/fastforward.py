@@ -122,7 +122,9 @@ def make_fast_forward(cfg: MachineConfig, n_pes: int):
     tick, so the compressed engine is bit-identical to the plain one.
 
     Shapes carry the lane axis: ``prog`` (B, P, CFG_F), ``modes`` (B,),
-    ``geoms`` (B, 2), ``sub_ids`` / ``remaining`` (B, N) int32.  Every
+    ``geoms`` (B, 2), ``sub_ids`` / ``remaining`` (B, N) int32; a static
+    engine's config supplies the mesh (``traced_geometry=False``) or the
+    mode (``traced_modes=False``) instead, as in the reference.  Every
     value is derived from the pre-state leaves the cycle does not update
     in place, and the new ``buf`` is a new tensor.
     """
@@ -135,8 +137,14 @@ def make_fast_forward(cfg: MachineConfig, n_pes: int):
         dev = st.cycle.device
         pe_ids = torch.arange(n, dtype=torch.int32, device=dev)
         ports = torch.arange(PORTS, dtype=torch.int32, device=dev)
-        w, gh = geoms[:, 0:1], geoms[:, 1:2]                  # (B, 1)
-        opp_on = ((modes & MODE_OPPORTUNISTIC) != 0)[:, None]
+        if cfg.traced_geometry:
+            w, gh = geoms[:, 0:1], geoms[:, 1:2]              # (B, 1)
+        else:
+            w, gh = cfg.width, cfg.height
+        if cfg.traced_modes:
+            opp_on = ((modes & MODE_OPPORTUNISTIC) != 0)[:, None]
+        else:
+            opp_on = cfg.opportunistic
 
         # ---- lone-flight proof, per sub-lane -------------------------
         lone = lone_probe(sub_ids, st)

@@ -20,9 +20,12 @@ deadlines and the event-compressed engine (``cfg.fast_forward``, see
 so is ``shard=True`` on one device; splitting the lane axis over several
 cards is not yet.
 
-Only the reference's traced engine axes are ported
-(``traced_modes=True``, ``traced_geometry=True``); the static golden
-paths raise :class:`NotImplementedError`.  The integer semantics follow
+The reference's static golden engines are ported too:
+``traced_modes=False`` bakes the config's mode flags into the cycle as
+Python bools, so only the branch taken runs, and
+``traced_geometry=False`` bakes its mesh (``cfg.neighbor_maps()``, no
+active-PE mask) into it; both give the traced engine's bits.  The
+integer semantics follow
 the reference exactly: floor division and Python-style modulo on possibly
 negative operands, first-index ``argmin``/``argmax`` tie-breaking, stable
 compaction, uint32 wraparound in the Valiant waypoint hash (emulated in
@@ -107,10 +110,11 @@ class MachineConfig:
     """Machine parameters (the reference's fields and defaults).
 
     ``opportunistic`` / ``valiant`` / ``dual_issue`` and ``width`` /
-    ``height`` only name the default lane mode and geometry: the engine
+    ``height`` name the default lane mode and geometry: the traced engine
     reads both per lane at run time.  ``traced_modes=False`` and
-    ``traced_geometry=False`` (the reference's static golden paths) are
-    not ported and raise :class:`NotImplementedError`.
+    ``traced_geometry=False`` build the reference's static golden engines
+    instead, which bake the flags or the mesh into the cycle (every lane
+    then has the config's mode or mesh).
 
     ``fast_forward=True`` (the default) runs the event-compressed engine
     of :mod:`repro_torch.core.fastforward`: a sub-lane whose only event
@@ -136,13 +140,30 @@ class MachineConfig:
     def n_pes(self) -> int:
         return self.width * self.height
 
+    def neighbor_maps(self) -> tuple[np.ndarray, np.ndarray]:
+        """(N,4) neighbor PE id per direction (or -1) and opposite-port map."""
+        n = self.n_pes
+        nbr = np.full((n, 4), -1, dtype=np.int32)
+        for p in range(n):
+            x, y = p % self.width, p // self.width
+            if y > 0:
+                nbr[p, P_N] = p - self.width
+            if x < self.width - 1:
+                nbr[p, P_E] = p + 1
+            if y < self.height - 1:
+                nbr[p, P_S] = p + self.width
+            if x > 0:
+                nbr[p, P_W] = p - 1
+        # A message leaving through N arrives on the neighbor's S port, etc.
+        return nbr, np.array([P_S, P_W, P_N, P_E], dtype=np.int32)
 
-def _require_traced(cfg: MachineConfig) -> None:
-    if not (cfg.traced_modes and cfg.traced_geometry):
-        raise NotImplementedError(
-            "the static golden engines (traced_modes=False / "
-            "traced_geometry=False) are not ported; the port steps the "
-            "traced engine axes only")
+
+def mode_flags(mode) -> dict:
+    """Inverse of :func:`mode_code`: bitmask/name -> MachineConfig kwargs."""
+    code = resolve_mode(mode)
+    return dict(opportunistic=bool(code & MODE_OPPORTUNISTIC),
+                dual_issue=bool(code & MODE_DUAL_ISSUE),
+                valiant=bool(code & MODE_VALIANT))
 
 
 class MachineState(NamedTuple):
@@ -363,28 +384,56 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
     optional (B, N) bool mask of budget-halted PEs, which make no state
     transition this tick (no execution, no transit request, no
     stall/cycle/rr advance); ``halt=None`` is the unconditional tick.
+
+    ``cfg.traced_geometry=False`` bakes the config's mesh into the cycle
+    (``geom`` is then ignored, and ``n_pes`` must equal ``cfg.n_pes``);
+    ``cfg.traced_modes=False`` bakes its mode flags (``mode`` is ignored,
+    and each mode-dependent step runs only the branch the flags take).
     """
-    _require_traced(cfg)
     n = cfg.n_pes if n_pes is None else int(n_pes)
+    if not cfg.traced_geometry:
+        assert n == cfg.n_pes, \
+            "static-geometry engines cannot pad the PE axis"
     opp_list = [P_S, P_W, P_N, P_E]
     cache: dict = {}
 
     def consts(device):
         c = cache.get(device)
         if c is None:
-            c = dict(pe=torch.arange(n, dtype=torch.int32, device=device),
+            pe = torch.arange(n, dtype=torch.int32, device=device)
+            c = dict(pe=pe,
                      opp=torch.tensor(opp_list, dtype=torch.int64,
                                       device=device),
                      dep=torch.arange(DEPTH, dtype=torch.int32,
                                       device=device))
+            if not cfg.traced_geometry:
+                c.update(nbr=torch.as_tensor(cfg.neighbor_maps()[0],
+                                             device=device),
+                         xs=torch.remainder(pe, cfg.width)[None, :],
+                         ys=_fdiv(pe, cfg.width)[None, :])
             cache[device] = c
         return c
+
+    def pick_mode(pred, on, off):
+        """The static short-circuit for a Python-bool ``pred`` (only the
+        branch taken runs); a per-lane select of both (tuples leaf by leaf)
+        for a traced (B,) one."""
+        if isinstance(pred, bool):
+            return on() if pred else off()
+
+        def sel(a, b):
+            return torch.where(pred.view(-1, *[1] * (a.dim() - 1)), a, b)
+
+        a, b = on(), off()
+        if isinstance(a, tuple):
+            return tuple(sel(x, y) for x, y in zip(a, b))
+        return sel(a, b)
 
     def route(dest, credit_ok, w, xs, ys):
         """West-first turn-model output port for (B,N,P) dest PE ids, with
         the congestion-aware choice between the two permitted minimal
         directions (§3.3.2).  Undefined (but computed) where dest < 0."""
-        w3 = w[:, :, None]
+        w3 = w[:, :, None] if torch.is_tensor(w) else w
         dx = torch.remainder(dest, w3) - xs[:, :, None]
         dy = _fdiv(dest, w3) - ys[:, :, None]
         ns = torch.where(dy < 0, P_N, P_S)
@@ -417,29 +466,38 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
             if halt is None else ~halt
         mw = min(cfg.mem_words, st.mem_val.shape[-1])
 
-        # traced mesh: coordinates, neighbors and the active-PE mask from
-        # the per-lane (width, height).
-        w = geom[:, 0:1]
-        gh = geom[:, 1:2]
-        xs = torch.remainder(pe[None, :], w)                 # (B,N)
-        ys = _fdiv(pe[None, :], w)
-        active = pe[None, :] < w * gh
-        nbr = torch.stack([
-            torch.where(active & (ys > 0), pe - w, -1),
-            torch.where(active & (xs < w - 1), pe + 1, -1),
-            torch.where(active & (ys < gh - 1), pe + w, -1),
-            torch.where(active & (xs > 0), pe - 1, -1),
-        ], dim=2)                                            # (B,N,4)
+        if cfg.traced_geometry:
+            # traced mesh: coordinates, neighbors and the active-PE mask
+            # from the per-lane (width, height).
+            w = geom[:, 0:1]
+            gh = geom[:, 1:2]
+            xs = torch.remainder(pe[None, :], w)             # (B,N)
+            ys = _fdiv(pe[None, :], w)
+            active = pe[None, :] < w * gh
+            nbr = torch.stack([
+                torch.where(active & (ys > 0), pe - w, -1),
+                torch.where(active & (xs < w - 1), pe + 1, -1),
+                torch.where(active & (ys < gh - 1), pe + w, -1),
+                torch.where(active & (xs > 0), pe - 1, -1),
+            ], dim=2)                                        # (B,N,4)
+        else:
+            # static mesh, baked from the config: every PE is real
+            w, xs, ys, active = cfg.width, c["xs"], c["ys"], None
+            nbr = c["nbr"].expand(bsz, n, 4)
 
-        opp_on = (mode & MODE_OPPORTUNISTIC) != 0            # (B,)
-        dual_on = (mode & MODE_DUAL_ISSUE) != 0
-        val_on = (mode & MODE_VALIANT) != 0
+        if cfg.traced_modes:
+            opp_on = (mode & MODE_OPPORTUNISTIC) != 0        # (B,)
+            dual_on = (mode & MODE_DUAL_ISSUE) != 0
+            val_on = (mode & MODE_VALIANT) != 0
+        else:
+            opp_on, dual_on, val_on = (cfg.opportunistic, cfg.dual_issue,
+                                       cfg.valiant)
 
         def maybe_anchor(msgs):
             # TIA anchoring applies exactly when the lane is NOT
             # opportunistic.
-            return torch.where(opp_on[:, None, None], msgs,
-                               _anchor_tia(msgs, pe))
+            return pick_mode(opp_on, lambda: msgs,
+                             lambda: _anchor_tia(msgs, pe))
 
         heads = st.buf[:, :, :, 0, :]                        # (B,N,5,F)
         head_v = st.buf_n > 0                                # (B,N,5)
@@ -466,8 +524,9 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
         all_m = st.buf
         opn_a = all_m[..., F_OP]
         local_a = slot_v & (all_m[..., F_DST0] == pe[None, :, None, None]) \
-            & (all_m[..., F_VIA] < 0) & active[:, :, None, None] \
-            & act[:, :, None, None]
+            & (all_m[..., F_VIA] < 0) & act[:, :, None, None]
+        if active is not None:
+            local_a = local_a & active[:, :, None, None]
         swq_ok = (st.swq_n < cfg.stream_wait_cap - 1)[:, :, None, None]
         stream_a = opn_a == OP_STREAM
         no_emit_a = (opn_a == OP_STORE_ADD) | (opn_a == OP_STORE_SET) | \
@@ -480,30 +539,45 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
 
         k = PORTS * DEPTH
         shape3 = (bsz, n, PORTS, DEPTH)
-        # separate decode + compute units (Fig. 8b) ...
-        dual_mem = _pick_one(mem_cand.reshape(bsz, n, k), st.rr)
-        dual_alu = _pick_one(alu_cand.reshape(bsz, n, k), st.rr + 2)
-        # ... or TIA triggered dispatch: ONE ready instruction per PE.
-        sel_one = _pick_one((mem_cand | alu_cand).reshape(bsz, n, k), st.rr)
-        dual = dual_on[:, None, None]
-        sel_mem3 = torch.where(
-            dual, dual_mem, sel_one & is_mem_op(opn_a).reshape(bsz, n, k)
-        ).reshape(shape3)
-        sel_alu3 = torch.where(
-            dual, dual_alu, sel_one & is_alu_op(opn_a).reshape(bsz, n, k)
-        ).reshape(shape3)
+
+        def sel_dual():
+            # separate decode + compute units (Fig. 8b): one of each may
+            # retire per cycle.
+            return (_pick_one(mem_cand.reshape(bsz, n, k), st.rr),
+                    _pick_one(alu_cand.reshape(bsz, n, k), st.rr + 2))
+
+        def sel_single():
+            # TIA triggered dispatch: ONE ready instruction per PE.
+            one = _pick_one((mem_cand | alu_cand).reshape(bsz, n, k), st.rr)
+            return (one & is_mem_op(opn_a).reshape(bsz, n, k),
+                    one & is_alu_op(opn_a).reshape(bsz, n, k))
+
+        sel_mem3, sel_alu3 = (
+            x.reshape(shape3)
+            for x in pick_mode(dual_on, sel_dual, sel_single))
         any_alu_local = sel_alu3.any(3).any(2)
         opn = heads[..., F_OP]
 
-        # in-network computing: an idle compute unit intercepts a passing
-        # ALU-class message whose operands are complete (head only).
-        head_next_op = _prog_rows(prog, heads[..., F_PC])[..., C_OP]
-        icand = (head_v & ~real_dest & (via < 0) & is_alu_op(opn)
-                 & (heads[..., F_OP1C] == 1) & (heads[..., F_OP2C] == 1)
-                 & (head_next_op != OP_NOP))
-        icand = icand & (~any_alu_local)[:, :, None] & active[:, :, None] \
-            & act[:, :, None]
-        sel_icept = _pick_one(icand, st.rr + 1) & opp_on[:, None, None]
+        def sel_opportunistic():
+            # in-network computing: an idle compute unit intercepts a
+            # passing ALU-class message whose operands are complete (head
+            # only).
+            head_next_op = _prog_rows(prog, heads[..., F_PC])[..., C_OP]
+            icand = (head_v & ~real_dest & (via < 0) & is_alu_op(opn)
+                     & (heads[..., F_OP1C] == 1) & (heads[..., F_OP2C] == 1)
+                     & (head_next_op != OP_NOP))
+            icand = icand & (~any_alu_local)[:, :, None] & act[:, :, None]
+            if active is not None:
+                icand = icand & active[:, :, None]
+            return _pick_one(icand, st.rr + 1)
+
+        # no interception: zeros when static, a scalar False for the
+        # traced select (no tensor to build)
+        sel_icept = pick_mode(
+            opp_on, sel_opportunistic,
+            (lambda: torch.zeros((bsz, n, PORTS), dtype=torch.bool,
+                                 device=dev))
+            if isinstance(opp_on, bool) else (lambda: False))
         icept3 = sel_icept[..., None] & (dep == 0)
         sel_alu3 = sel_alu3 | icept3
         sel_exec3 = (sel_mem3 | sel_alu3) & ~icept3
@@ -727,7 +801,9 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
             buf_n[:, :, q] += _i32(has)
 
         # ==================== INJECTION (AM NIC, §3.3.1) ====================
-        inj_space = (buf_n[:, :, P_INJ] < DEPTH) & active & act
+        inj_space = (buf_n[:, :, P_INJ] < DEPTH) & act
+        if active is not None:
+            inj_space = inj_space & active
         have_dyn = pend_n > 0
         have_stat = st.amq_head < st.amq_len
         inj_dyn = inj_space & have_dyn
@@ -737,27 +813,31 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
                              st.amq_head.clamp(0, st.amq.shape[2] - 1))
         inj_msg = torch.where(inj_dyn[..., None], dyn_msg, stat_msg)
 
-        # TIA-Valiant: ROMM-style randomized minimal-path routing.  The
-        # reference's uint32 hash (wraparound multiply, unsigned %, logical
-        # >> 8) is computed in int64 masked to 32 bits.
-        h = ((sub_local.long() & _U32) * 2654435761
-             + (st.cycle.long() & _U32) * 40503) & _U32
-        dstp = inj_msg[..., F_DST0].clamp(min=0)
-        dx = torch.remainder(dstp, w) - xs
-        dy = _fdiv(dstp, w) - ys
-        rx = _i32(torch.remainder(h, dx.abs().long() + 1))
-        ry = _i32(torch.remainder(h >> 8, dy.abs().long() + 1))
-        # west-first legality across the two legs: westbound traffic pins
-        # via_x = dst_x and randomizes only y.
-        rx = torch.where(dx < 0, dx.abs(), rx)
-        via_pe = (ys + torch.sign(dy) * ry) * w + (xs + torch.sign(dx) * rx)
-        eligible = (inj_msg[..., F_VIA] == -1) & \
-            (inj_msg[..., F_DST0] != pe) & (via_pe != pe) & \
-            (via_pe != inj_msg[..., F_DST0])
-        inj_val = inj_msg.clone()
-        inj_val[..., F_VIA] = torch.where(eligible, via_pe,
-                                          inj_msg[..., F_VIA])
-        inj_msg = torch.where(val_on[:, None, None], inj_val, inj_msg)
+        def inj_valiant():
+            # TIA-Valiant: ROMM-style randomized minimal-path routing.  The
+            # reference's uint32 hash (wraparound multiply, unsigned %,
+            # logical >> 8) is computed in int64 masked to 32 bits.
+            h = ((sub_local.long() & _U32) * 2654435761
+                 + (st.cycle.long() & _U32) * 40503) & _U32
+            dstp = inj_msg[..., F_DST0].clamp(min=0)
+            dx = torch.remainder(dstp, w) - xs
+            dy = _fdiv(dstp, w) - ys
+            rx = _i32(torch.remainder(h, dx.abs().long() + 1))
+            ry = _i32(torch.remainder(h >> 8, dy.abs().long() + 1))
+            # west-first legality across the two legs: westbound traffic
+            # pins via_x = dst_x and randomizes only y.
+            rx = torch.where(dx < 0, dx.abs(), rx)
+            via_pe = (ys + torch.sign(dy) * ry) * w + \
+                (xs + torch.sign(dx) * rx)
+            eligible = (inj_msg[..., F_VIA] == -1) & \
+                (inj_msg[..., F_DST0] != pe) & (via_pe != pe) & \
+                (via_pe != inj_msg[..., F_DST0])
+            inj_val = inj_msg.clone()
+            inj_val[..., F_VIA] = torch.where(eligible, via_pe,
+                                              inj_msg[..., F_VIA])
+            return inj_val
+
+        inj_msg = pick_mode(val_on, inj_valiant, lambda: inj_msg)
         do_inj = inj_dyn | inj_stat
         posi = buf_n[:, :, P_INJ].clamp(0, DEPTH - 1).long()
         cur = buf[bi, pi, P_INJ, posi]
@@ -788,6 +868,26 @@ def _make_cycle(cfg: MachineConfig, n_pes: int | None = None):
             st_inj=st.st_inj + _i32(do_inj))
 
     return cycle
+
+
+def is_idle(st: MachineState, active: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """Global idle detection (§3.1.4): no work anywhere and nothing in
+    flight, over the whole state (every lane of a batch; :func:`lane_work`
+    and :func:`group_idle` are the per-PE and per-sub-lane tests).
+    ``active`` (bool, the PE axes' shape) optionally masks PEs out: padded
+    PEs of a traced geometry hold zero state, so the mask is defensive, as
+    in the reference.  Returns a 0-dim bool tensor."""
+    if active is None:
+        return ((st.buf_n.sum() == 0) & (st.pend_n.sum() == 0)
+                & ~st.stream_on.any() & (st.swq_n.sum() == 0)
+                & (st.amq_head >= st.amq_len).all())
+    a = active
+    return (((st.buf_n * a[..., None]).sum() == 0)
+            & ((st.pend_n * a).sum() == 0)
+            & ~(st.stream_on & a).any()
+            & ((st.swq_n * a).sum() == 0)
+            & ((st.amq_head >= st.amq_len) | ~a).all())
 
 
 def lane_work(st: MachineState) -> torch.Tensor:
@@ -951,7 +1051,6 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
     ``n_devices`` > 1 (the lane axis split over several cards) is not
     ported yet (ROADMAP.md, Queue 1, the multi-device lane split).
     """
-    _require_traced(cfg)
     if n_max is None:
         n_max = cfg.n_pes
     if n_devices > 1:
@@ -1233,7 +1332,6 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                                 for w in wave_shard_stats),
                 plan=[w["plan"] for w in wave_shard_stats])
         return results
-    _require_traced(cfg)
     if not isinstance(workloads, BatchedWorkloads):
         workloads = list(workloads)
         if cycle_hints is None and shard:
@@ -1261,6 +1359,16 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         if (lane_geoms[:, 0] * lane_geoms[:, 1] > n_max).any():
             raise ValueError("lane geometry exceeds the batch PE axis "
                              f"({n_max} PEs)")
+        if not cfg.traced_geometry:
+            if ((lane_geoms[:, 0] != cfg.width)
+                    | (lane_geoms[:, 1] != cfg.height)).any():
+                raise ValueError(
+                    "per-lane geometries differing from the config require "
+                    "cfg.traced_geometry=True (static engines bake the "
+                    "mesh into the trace)")
+            if n_max != cfg.n_pes:
+                raise ValueError(f"batch padded to {n_max} PEs but the "
+                                 f"static-geometry cfg has {cfg.n_pes}")
     if workloads.mem_words > cfg.mem_words:
         cfg = dataclasses.replace(cfg, mem_words=workloads.mem_words)
 
@@ -1273,6 +1381,10 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         if lane_modes.shape[0] != workloads.batch:
             raise ValueError(f"{lane_modes.shape[0]} modes for "
                              f"{workloads.batch} lanes")
+    if not cfg.traced_modes and (lane_modes != mode_code(cfg)).any():
+        raise ValueError("per-lane modes differing from the config flags "
+                         "require cfg.traced_modes=True (static engines "
+                         "bake the mode into the trace)")
 
     if workloads.sub_ids is not None:
         sub_ids = np.asarray(workloads.sub_ids, np.int32)

@@ -1,10 +1,12 @@
-"""Block-CSR container for the port's block-sparse kernels.
+"""Sparse containers: ``CSR`` (the paper's format, §2.2) and ``BCSR`` (the
+block format of the port's block-sparse kernels).
 
 Built on the host in numpy, exactly as the reference's
-``repro.sparse.formats.BCSR.from_dense``; the arrays come out as torch
-tensors on the requested device.  The block capacity ``bcap`` may exceed
-the live count ``n_blocks``: lanes at or past it are padding, which every
-consumer ignores.
+``repro.sparse.formats``' ``from_dense``; the arrays come out as torch
+tensors on the requested device.  Both carry a padded nonzero region: the
+capacity may exceed the live count (``nnz``, ``n_blocks``), and the
+padding lanes (column 0, value 0) are harmless to every op in
+:mod:`repro_torch.sparse.ops` and ignored by the kernels.
 """
 from __future__ import annotations
 
@@ -12,6 +14,71 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Compressed sparse row, padded to a static nonzero capacity."""
+
+    rowptr: torch.Tensor    # (m+1,) int32
+    col: torch.Tensor       # (cap,) int32 (padded with 0)
+    val: torch.Tensor       # (cap,) dtype
+    nnz: int                # live prefix of col/val
+    shape: tuple[int, int]
+
+    @property
+    def row_ids(self) -> torch.Tensor:
+        """(cap,) row index of every (padded) nonzero; pads map to row 0
+        with zero value, so segment sums are unaffected."""
+        lanes = torch.arange(self.col.shape[0], dtype=self.rowptr.dtype,
+                             device=self.rowptr.device)
+        return (torch.searchsorted(self.rowptr, lanes, right=True) - 1
+                ).clamp(0, self.shape[0] - 1)
+
+    @classmethod
+    def from_dense(cls, a, *, cap: int | None = None,
+                   device="cuda") -> "CSR":
+        a = np.asarray(a)
+        m, n = a.shape
+        rows, cols = np.nonzero(a)
+        nnz = rows.size
+        cap = cap or max(1, nnz)
+        if cap < nnz:
+            raise ValueError(f"cap {cap} < nnz {nnz}")
+        rowptr = np.zeros((m + 1,), np.int32)
+        np.add.at(rowptr, rows + 1, 1)
+        rowptr = np.cumsum(rowptr).astype(np.int32)
+        col = np.zeros((cap,), np.int32)
+        val = np.zeros((cap,), a.dtype)
+        col[:nnz] = cols
+        val[:nnz] = a[rows, cols]
+        return cls(torch.as_tensor(rowptr, device=device),
+                   torch.as_tensor(col, device=device),
+                   torch.as_tensor(val, device=device), int(nnz), (m, n))
+
+    def live(self) -> torch.Tensor:
+        """(cap,) bool: the lanes below ``nnz``."""
+        return torch.arange(self.col.shape[0], device=self.col.device) \
+            < self.nnz
+
+    def to_dense(self) -> torch.Tensor:
+        out = torch.zeros(self.shape, dtype=self.val.dtype,
+                          device=self.val.device)
+        v = torch.where(self.live(), self.val, 0)
+        return out.index_put_((self.row_ids.long(), self.col.long()), v,
+                              accumulate=True)
+
+
+def random_csr(gen: torch.Generator, m: int, n: int, density: float, *,
+               dtype=torch.float32, cap: int | None = None) -> CSR:
+    """Test helper: unstructured sparsity at a target density, drawn from
+    ``gen`` on its device (the reference draws from ``jax.random``, whose
+    stream torch cannot reproduce)."""
+    dev = gen.device
+    mask = torch.rand((m, n), generator=gen, device=dev) < density
+    vals = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+    dense = torch.where(mask, vals, 0).cpu().numpy()
+    return CSR.from_dense(dense, cap=cap, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)

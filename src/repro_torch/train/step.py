@@ -1,8 +1,6 @@
 """The train step and its loss: the port of the reference's
-``repro/train/step.py`` for the text models (dense, MoE, MLA, the
-Mamba-2 hybrid and the xLSTM).  The audio and vision families' batches
-and losses (frames, patches, the text-region mask) are not ported yet
-and raise (ROADMAP.md, Queue 1, training the new families).
+``repro/train/step.py`` for every family (dense, MoE, MLA, the Mamba-2
+hybrid, the xLSTM, the audio encoder and the VLM).
 
 One step is the forward and backward of :func:`loss_fn` (optionally over
 microbatches, whose gradients are summed in f32 as the reference's
@@ -20,19 +18,18 @@ from repro_torch.models.layers import cross_entropy
 from repro_torch.train import optimizer as opt
 
 
-def _check_text_model(cfg: ArchConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training with the {cfg.frontend} frontend is not "
-            "ported yet (ROADMAP.md, Queue 1, training the new families)")
-
-
 def loss_fn(params: lm.LM, cfg: ArchConfig, batch, *, aux_weight=0.01):
-    """Next-token cross-entropy plus ``aux_weight`` times the MoE
-    load-balance loss.  Returns ``(loss, aux)``."""
-    _check_text_model(cfg)
+    """The cross-entropy plus ``aux_weight`` times the MoE load-balance
+    loss; returns ``(loss, aux)``.  The VLM's loss covers its text region
+    only (the patches carry no labels); an encoder's is masked by
+    ``batch["mask"]`` and unshifted; every other model's is next-token."""
     logits, _, aux = lm.forward(params, cfg, batch)
-    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    if cfg.frontend == "vision":
+        logits = logits[:, -batch["labels"].shape[1]:, :]
+    if cfg.encoder_only:
+        loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    else:
+        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     return loss + aux_weight * aux, aux
 
 
@@ -87,14 +84,38 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, microbatch: int | None = None,
 
 def synth_batch(cfg: ArchConfig, batch: int, seq: int,
                 gen: torch.Generator | None = None):
-    """A synthetic token batch (uniform ids in ``[0, vocab)``) drawn from
-    ``gen`` on its device (by default a generator on the card seeded with
-    0).  ``jax.random``'s stream cannot be reproduced in torch, so tests
-    that compare with the reference draw their batches from
-    :class:`repro_torch.data.SyntheticTokenStream` instead."""
-    _check_text_model(cfg)
+    """A synthetic batch with the model's inputs, drawn from ``gen`` on its
+    device (by default a generator on the card seeded with 0), in the
+    reference's dtypes: for the audio encoder bf16 ``frames`` (batch, seq,
+    512), ``labels`` in ``[0, vocab)`` and a ``mask`` of ones; for the VLM
+    ``max(seq - n_patches, 8)`` ``tokens``, which are their own ``labels``
+    as in the reference, after bf16 ``patches`` (batch, n_patches,
+    d_frontend); for the others uniform
+    ``tokens`` that are their own ``labels``.  ``jax.random``'s stream
+    cannot be reproduced in torch, so tests that compare with the
+    reference draw their batches with numpy instead."""
     gen = gen if gen is not None else \
         torch.Generator(device="cuda").manual_seed(0)
-    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
-                         dtype=torch.int32, device=gen.device)
+    dev = gen.device
+
+    def ids(shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    if cfg.frontend == "audio":
+        return {"frames": normal((batch, seq, 512)),
+                "labels": ids((batch, seq)),
+                "mask": torch.ones((batch, seq), dtype=torch.float32,
+                                   device=dev)}
+    if cfg.frontend == "vision":
+        # the reference draws tokens and labels with one key: they are equal
+        toks = ids((batch, max(seq - cfg.n_patches, 8)))
+        return {"tokens": toks,
+                "patches": normal((batch, cfg.n_patches, cfg.d_frontend)),
+                "labels": toks}
+    toks = ids((batch, seq))
     return {"tokens": toks, "labels": toks}

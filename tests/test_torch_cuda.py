@@ -528,3 +528,93 @@ def test_cuda_train_step_matches_golden(cuda_device):
     golden.check_train(res.losses, res.aux_losses, res.grad_norms,
                        {k: want[k][:1] for k in ("loss", "aux_loss",
                                                  "grad_norm")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])
+def test_cuda_grouped_expert_matmul_deepseek_training_shape(cuda_device, d,
+                                                            f):
+    """DeepSeek-V2-Lite's training products (64 experts; 4 x 128 tokens,
+    top-6, capacity factor 1.25: capacity 60, so tile_m 60, a tile that is
+    no multiple of 8, on the tiled shape) and their dx against the plain
+    version, as ``chip_smoke.py``'s ``[train-families]`` leg holds them
+    (rtol = atol = 2e-2, max |err| within 2e-2 of max |plain|)."""
+    e, c = 64, 60
+    rng = np.random.default_rng(d)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.bfloat16, device=cuda_device)
+    xe, w = t(e, c, d).requires_grad_(), t(e, d, f, scale=d ** -0.5)
+    w.requires_grad_()
+    cot = t(e, c, f)
+    before = group_matmul.launches
+    y = grouped_expert_matmul(xe, w)
+    (y * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert group_matmul.launches == before + 2
+    with torch.no_grad():
+        for got, want in (
+                (y, _plain_grouped(xe, w, None)),
+                (xe.grad.float(),
+                 _plain_grouped(cot, w.transpose(1, 2).contiguous(), None))):
+            torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+            err = (got - want).abs().max().item()
+            assert err <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
+def test_cuda_train_families_meet_golden(cuda_device, arch):
+    """The reduced families in f32 on the card meet
+    ``train_families_reduced.json``; DeepSeek's expert products and their
+    dx launch the kernel (3 a layer a step each), the others none."""
+    from repro_torch import configs
+    from repro_torch.bench import golden
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch(configs.ALIASES[arch]).reduced()
+    before = group_matmul.launches
+    got = golden.train_family_run(arch, cuda_device)
+    steps = golden.TRAIN_FAMILIES_SPEC["steps"]
+    assert group_matmul.launches - before == (
+        2 * 3 * cfg.n_layers * steps if cfg.moe is not None else 0)
+    golden.check_train(got["loss"], got["aux_loss"], got["grad_norm"],
+                       golden.load_train_families_golden()["archs"][arch])
+
+
+@pytest.mark.cuda
+def test_cuda_static_engine_matches_golden(cuda_device):
+    """The static golden engine on the card: grid A's spmv, bfs and sddmm
+    nexus lanes at 4x4 with the mode and the mesh baked in equal
+    ``paper_grid.json`` bit for bit, and their final state is idle."""
+    import dataclasses
+
+    from repro_torch.bench import golden, harness
+    from repro_torch.bench.workloads import make_all
+    from repro_torch.core import machine
+    from chip_smoke import FinalState
+    spec = dict(golden.GRIDS["grid_a"], workloads=["spmv", "bfs", "sddmm"])
+    wls = golden.grid_workloads(spec, make_all())
+    cap = FinalState()
+    machine._get_engine = cap
+    try:
+        lanes, _ = harness.run_grid_lanes(
+            wls, ["nexus"], base_cfg=machine.MachineConfig(
+                traced_modes=False, traced_geometry=False),
+            max_cycles=golden.MAX_CYCLES, device=cuda_device)
+    finally:
+        machine._get_engine = cap.inner
+    # the golden run's memory images are as wide as grid A's widest lane
+    # (4,096 words); these lanes' images are padded with the zeros that
+    # their unused words hold there
+    got = {}
+    for ln in lanes:
+        mem = ln.result.mem_val
+        res = dataclasses.replace(ln.result, mem_val=np.pad(
+            mem, ((0, 0), (0, 4096 - mem.shape[1]))))
+        got[golden.lane_key(ln.workload.name, ln.mode, ln.size)] = \
+            golden.lane_record(res)
+    want = golden.load_golden()["grid_a"]["lanes"]
+    golden.check_lanes(got, {k: want[k] for k in got})
+    assert bool(machine.is_idle(cap.st))

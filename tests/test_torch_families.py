@@ -33,7 +33,6 @@ from repro_torch.convert import (params_from_numpy,  # noqa: E402
                                  params_to_numpy)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm, mamba2, mla, multimodal, xlstm  # noqa: E402
-from repro_torch.train import step as train_step  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 FAMILIES = ["xlstm_350m", "zamba2_1p2b", "deepseek_v2_lite_16b",
@@ -375,16 +374,3 @@ def test_checkpoints_cross_packages_in_reference_layout(tmp_path, arch):
     assert step == 6
     jax.tree.map(lambda g, w: np.testing.assert_array_equal(np.asarray(g), w),
                  rback, tree)
-
-
-@pytest.mark.parametrize("arch", ["hubert_xlarge", "llava_next_mistral_7b"])
-def test_training_a_frontend_family_is_refused(arch):
-    """Training the audio and vision families (their batches and the VLM's
-    text-region loss) is not ported: the train step says so."""
-    cfg, _ = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_step.synth_batch(cfg, 2, 8, torch.Generator().manual_seed(0))
-    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_step.loss_fn(params, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)})

@@ -49,7 +49,9 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.train.optimizer", "repro_torch.train.step",
               "repro_torch.train.compress", "repro_torch.launch.train",
               "repro_torch.launch.train_100m", "repro_torch.convert",
-              "repro_torch.bench.profile_train"):
+              "repro_torch.bench.profile_train", "repro_torch.sparse",
+              "repro_torch.sparse.formats", "repro_torch.sparse.ops",
+              "repro_torch.testing"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

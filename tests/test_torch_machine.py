@@ -202,13 +202,6 @@ def test_unported_options_raise(kw):
     assert port.engine_cache_size() == 1
 
 
-@pytest.mark.parametrize("flag", ["traced_modes", "traced_geometry"])
-def test_static_golden_engines_not_ported(flag):
-    cfg = port.MachineConfig(**{flag: False})
-    with pytest.raises(NotImplementedError):
-        port._make_cycle(cfg)
-
-
 def test_config_keeps_reference_fields():
     """MachineConfig and MachineState keep the reference's fields, order
     and defaults."""

@@ -8,6 +8,8 @@ the shape of the rows are checked; the device numbers come from a run on
 the card (``python -m repro_torch.bench.profile_serve`` and
 ``python -m repro_torch.bench.profile_train``).
 """
+import dataclasses
+
 import pytest
 
 pytest.importorskip("torch")
@@ -58,3 +60,26 @@ def test_train_profile_runs_the_train_step_on_cpu():
                         "top_device_ops", "peak_mem_bytes"}
     assert LEGS["moe"][0].d_model == 4096 and LEGS["moe"][0].n_layers == 2
     assert LEGS["moe"][1]["lr"] == 3e-4 and LEGS["dense"][1]["lr"] == 1e-3
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-mistral-7b",
+                                  "deepseek-v2-lite-16b", "zamba2-1.2b",
+                                  "xlstm-350m"])
+def test_family_train_legs_profile_on_cpu(arch):
+    """``profile_train --arch``: each family's leg is full width (depth cut
+    only where stated) and its profile runs on the reduced config with one
+    ``synth_batch`` at every step."""
+    from repro_torch.bench.profile_train import FAMILY_LEGS, train_profile
+    cfg, traffic = FAMILY_LEGS[arch]
+    full = configs.get_arch(configs.ALIASES[arch])
+    assert dataclasses.replace(cfg, n_layers=full.n_layers,
+                               remat=full.remat) == full
+    assert cfg.n_layers == {"llava-next-mistral-7b": 8,
+                            "deepseek-v2-lite-16b": 4}.get(arch,
+                                                           full.n_layers)
+    assert traffic["lr"] == (2e-5 if arch == "llava-next-mistral-7b"
+                             else 3e-4) and traffic["steps"] == 4
+    row = train_profile(cfg.reduced(), "cpu", batch=2, seq=16, lr=3e-4,
+                        steps=1, synth=True)
+    assert row["arch"] == cfg.name and row["wall_ms_per_step"] > 0
+    assert row["group_matmul_launches_per_step"] == 0
