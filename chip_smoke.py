@@ -22,7 +22,7 @@ Phases (any failure raises and the script exits non-zero):
    and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
    for bit, the packing schedule and the engine telemetry field for
    field): the packed Fig. 17 grid (9 lanes, 4 waves of 8x8
-   super-lanes), the 512-node pointer chase (8 lanes at 8x8) on the
+   super-lanes), the 256-node pointer chase (8 lanes at 8x8) on the
    fast-forward and on the plain engine, and a packed leg with a
    per-lane deadline; each prints its wall, engine ticks, lane-cycles/s,
    dead-step fraction, waves, packing efficiency and peak memory.  After
@@ -118,7 +118,29 @@ Phases (any failure raises and the script exits non-zero):
    ``random_csr`` matrices of 1,024 x 1,024 at 1% against float64 numpy
    within 1e-4 (the f32 ``bcsr_spmm`` leg of phase 3 is also held to
    ``sparse.ops.bcsr_spmm``);
-10. time each kernel and its plain version with CUDA events over
+10. the multi-device slice on logical shards of the one card
+   (``repro_torch.bench.multidevice``; ``[shard]``): the legs of
+   ``src/repro_torch/golden/shard.json`` (the reference's ``sweep(...,
+   shard=True)`` under four forced host devices: the 18-lane workload x
+   mode x size grid, 5 lanes with 3 inert pad lanes, 2 lanes capping the
+   split at 2, and the grid packed) through ``sweep(..., devices=
+   [cuda:0] * 4)``, each held to its record bit for bit (lanes, the
+   shard plan, the packing schedule and the per-shard telemetry) and to
+   its workloads' oracles, with its wall, each engine call's ticks per
+   shard and the engine cache's size; then a ``SweepService`` with 4 super-lanes over
+   ``[cuda:0] * 2`` (two shards, ``slice_chunks=1``) on the lanes of
+   ``fig17_traffic(copies=1)``, every lane held to its record in
+   ``service.json``; then the AM dispatch (``[dispatch]``):
+   ``spmv_sharded`` over 8 logical shards of an 8,192 x 8,192 power-law
+   matrix (``repro_torch.launch.sparse_dispatch``'s generator) within
+   1e-3 of a float64 ``a @ x``, plain and with ``opportunistic=True`` at
+   the worst bucket's capacity, and ``psum_compressed`` over 4 shards of
+   seeded f32 gradients of the ``repro-100m`` parameter tree's shapes,
+   each shard's sum held to the float64 sum of the dequantized payloads
+   (within 1e-6 of the sum of the terms' magnitudes) and each shard's
+   error to ``compress_tree``'s bit for bit, with the max errors, wall
+   ms and bytes moved;
+11. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
    the training shapes, whose plain version takes tens of ms), at the
@@ -127,7 +149,7 @@ Phases (any failure raises and the script exits non-zero):
    dx shapes; compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-11. print the kernels line (a row per leg with the legs' launches,
+12. print the kernels line (a row per leg with the legs' launches,
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
@@ -161,7 +183,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.bench import golden, harness  # noqa: E402
+from repro_torch.bench import golden, harness, multidevice  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
@@ -1085,23 +1107,6 @@ def run_train_families_reduced() -> dict:
     return out
 
 
-class FinalState:
-    """Wraps ``machine._get_engine`` so that the engines it hands out keep
-    the final state of their last call in ``self.st``."""
-
-    def __init__(self):
-        self.inner, self.st = machine._get_engine, None
-
-    def __call__(self, *args, **kw):
-        engine = self.inner(*args, **kw)
-
-        def run(*a):
-            out = engine(*a)
-            self.st = out[0]
-            return out
-        return run
-
-
 def run_static() -> dict:
     """The ``[static]`` phase: grid A's nexus lanes at 4x4 through the
     static golden engine (``traced_modes=False``, ``traced_geometry=
@@ -1112,7 +1117,7 @@ def run_static() -> dict:
     want = golden.load_golden()["grid_a"]["lanes"]
     wls = golden.grid_workloads(golden.GRIDS["grid_a"], make_all())
     base = machine.MachineConfig(traced_modes=False, traced_geometry=False)
-    cap = FinalState()
+    cap = multidevice.EngineCalls()
     machine._get_engine = cap
     tel: dict = {}
     torch.cuda.reset_peak_memory_stats()
@@ -1127,7 +1132,7 @@ def run_static() -> dict:
     if len(got) != 13 or not set(got) <= set(want):
         raise AssertionError(f"static lanes {sorted(got)}")
     golden.check_lanes(got, {k: want[k] for k in got})
-    if cap.st is None or not bool(machine.is_idle(cap.st)):
+    if not cap.outs or not bool(machine.is_idle(cap.outs[-1][0])):
         raise AssertionError("the static engine's final state is not idle")
     dev = torch.device("cuda")
     ticks = {name: profile_ticks(*grid_a_engine(dev, ["nexus"], static), 4,
@@ -1189,6 +1194,23 @@ def run_sparse() -> dict:
     print(f"[sparse] the six oracles match float64 numpy within "
           f"{SPARSE_TOL}; {json.dumps(row)}", flush=True)
     return row
+
+
+def run_shard() -> dict:
+    """The ``[shard]`` phase: ``repro_torch.bench.multidevice.run_shard``
+    over four logical shards of the card (the service over two)."""
+    card = [torch.device("cuda", 0)] * golden.SHARD_DEVICES
+    return multidevice.run_shard(card, card[:2])
+
+
+def run_dispatch() -> dict:
+    """The ``[dispatch]`` phase: ``repro_torch.bench.multidevice
+    .run_dispatch`` over 8 logical shards of the card for
+    ``spmv_sharded`` and 4 for ``psum_compressed``."""
+    card = torch.device("cuda", 0)
+    rows = multidevice.run_dispatch([card] * 8, [card] * 4)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def training_shape_times(stats: dict, calls: dict,
@@ -1401,6 +1423,14 @@ def main() -> int:
     print(f"[static] phase {time.time() - t_st:.1f} s", flush=True)
     sparse_row = run_sparse()
 
+    # --- the multi-device slice on logical shards of the card ---------------
+    t_sh = time.time()
+    shard_rows = run_shard()
+    print(f"[shard] phase {time.time() - t_sh:.1f} s", flush=True)
+    t_am = time.time()
+    dispatch_rows = run_dispatch()
+    print(f"[dispatch] phase {time.time() - t_am:.1f} s", flush=True)
+
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -1429,7 +1459,8 @@ def main() -> int:
             "step_ms", "tokens_per_s", "peak_mem_bytes", "losses",
             "group_matmul_launches")} for k, v in fam_trained.items()},
         "train_families_reduced": fam_train_reduced,
-        "static": static, "sparse": sparse_row}))
+        "static": static, "sparse": sparse_row, "shard": shard_rows,
+        "dispatch": dispatch_rows}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,12 +17,24 @@ is held to it bit for bit with :func:`check_lanes`.
 **The sweep legs** (``golden/sweeps.json``): the reference's
 ``sweep(cfg, SweepRequest(...))`` on three legs (:data:`SWEEPS`, built by
 :func:`sweep_leg`): ``fig17``, the packed Fig. 17 grid (9 lanes in waves
-of 8x8 super-lanes); ``chain``, eight lanes of a scrambled 512-node
+of 8x8 super-lanes); ``chain``, eight lanes of a scrambled 256-node
 pointer chase at 8x8 (the fast-forward engine's workload); ``deadline``,
 spmv + bfs at 2x2, 3x3 and 4x4 packed into 6x6 super-lanes with a
 deadline on the 3x3 bfs lane.  Each record holds every lane's record (as
 above) and the report's ``pack`` and ``telemetry``; :func:`check_sweep`
 holds a run to it.
+
+**The sharded sweeps** (``golden/shard.json``): the reference's
+``sweep(cfg, SweepRequest(..., shard=True))`` under four forced host
+devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) on the
+legs of its own multi-device tests (``tests/test_lane_sharding.py``,
+:data:`SHARD_LEGS`, built by :func:`shard_leg`): ``grid``, spmv + bfs x
+nexus / tia / tia_valiant at 2x2, 3x3 and 4x4 (18 lanes); ``odd``, 5 spmv
+lanes (3 inert pad lanes); ``cap``, 2 lanes (so 2 devices); ``pack``, the
+18 lanes packed.  Each record holds every lane's record, the report's
+``shard`` plan and ``telemetry`` (per shard: each device's loop stops on
+its own, so they differ from the unsharded run's) and, packed, ``pack``;
+:func:`check_shard` holds a run over four shards to it.
 
 **The sweep service** (``golden/service.json``): the reference's one-shot
 ``run_many`` records of the ``fig17_traffic(copies=2)`` lanes
@@ -81,6 +93,7 @@ GOLDEN_PATH = os.path.join(GOLDEN_DIR, "paper_grid.json")
 SERVE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "serve_reduced.json")
 SWEEP_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "sweeps.json")
 SERVICE_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "service.json")
+SHARD_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "shard.json")
 TRAIN_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "train_reduced.json")
 FAMILIES_GOLDEN_PATH = os.path.join(GOLDEN_DIR, "families_reduced.json")
 TRAIN_FAMILIES_GOLDEN_PATH = os.path.join(GOLDEN_DIR,
@@ -138,19 +151,22 @@ GRIDS = {
 
 #: the sweep legs: ``fig17`` is the packed grid of the Fig. 17 script;
 #: ``chain`` the shape of the reference CI's fast-forward leg (8 lanes of
-#: a 512-node pointer chase at 8x8, chunk 512); ``deadline`` the packed
-#: per-size lanes of the reference's packing tests, the 3x3 bfs lane cut
-#: at 21 cycles (half of its 43, so the deadline bites).  That lane is
-#: sub-lane 0 of its 6x6 super-lane, whose uncovered PEs share its slot
-#: and keep ticking after the cut until ``max_cycles`` (a reference fault,
-#: ROADMAP.md section 3, kept bit for bit): the leg's cap of 2,048 bounds
-#: that to four chunks; every lane finishes in under 100 cycles.
+#: a pointer chase at 8x8, chunk 512), its depth cut from the CI's 512
+#: nodes to 256 so that ``chip_smoke.py`` stays inside its time budget
+#: (a serial walk: half the nodes, half the ticks); ``deadline`` the
+#: packed per-size lanes of the reference's packing tests, the 3x3 bfs
+#: lane cut at 21 cycles (half of its 43, so the deadline bites).  That
+#: lane is sub-lane 0 of its 6x6 super-lane, whose uncovered PEs share its
+#: slot and keep ticking after the cut until ``max_cycles`` (a reference
+#: fault, ROADMAP.md section 3, kept bit for bit): the leg's cap of 1,024
+#: (2,048 up to the same budget cut as the chain's) bounds that to two
+#: chunks; every lane finishes in under 100 cycles.
 SWEEPS = {
     "fig17": dict(pack=True),
-    "chain": dict(n_nodes=512, lanes=8, mesh=[8, 8], mem_words=8192,
+    "chain": dict(n_nodes=256, lanes=8, mesh=[8, 8], mem_words=8192,
                   max_cycles=400_000, chunk=512),
     "deadline": dict(sizes=[[2, 2], [3, 3], [4, 4]], density=0.35,
-                     super_geom=[6, 6], mem_words=1024, max_cycles=2048,
+                     super_geom=[6, 6], mem_words=1024, max_cycles=1024,
                      deadlines={"bfs@3x3": 21}),
 }
 
@@ -193,6 +209,108 @@ def sweep_leg(name: str, *, compiler, config, workloads, fig17):
                       super_geom=tuple(spec["super_geom"]),
                       deadlines=[spec["deadlines"].get(k) for k in keys]),
             keys)
+
+
+#: the sharded legs, recorded over ``SHARD_DEVICES`` devices: the workload
+#: x mode x size grid of the reference's ``test_lane_sharding.py`` (its
+#: ``per_size`` fixture's SpMV and BFS at each size, all three modes); 5
+#: spmv lanes (one more than the devices, so the plan pads); 2 lanes
+#: (the device count caps at the batch); and the grid packed.  The
+#: reference tests run the default chunk of 512, under which every shard
+#: of these legs (40-100 cycles a lane) stops after its first chunk; at
+#: :data:`SHARD_CHUNK` a shard whose lanes all finish within 64 cycles
+#: stops a chunk before the others, so the per-shard ticks differ and the
+#: records show each shard stopping on its own (lane results do not
+#: depend on the chunk)
+SHARD_DEVICES = 4
+SHARD_CHUNK = 64
+SHARD_LEGS = {
+    "grid": dict(sizes=[[2, 2], [3, 3], [4, 4]], names=["spmv", "bfs"],
+                 modes=True, chunk=SHARD_CHUNK),
+    "odd": dict(sizes=[[2, 2], [3, 3], [4, 4], [2, 2], [3, 3]],
+                names=["spmv"], modes=False, chunk=SHARD_CHUNK),
+    "cap": dict(sizes=[[2, 2], [4, 4]], names=["spmv"], modes=False,
+                chunk=SHARD_CHUNK),
+    "pack": dict(sizes=[[2, 2], [3, 3], [4, 4]], names=["spmv", "bfs"],
+                 modes=True, pack=True, chunk=SHARD_CHUNK),
+}
+
+
+def shard_leg(name: str, *, compiler, config, fabric_modes, workloads):
+    """Build one sharded leg from a package's modules: ``compiler``,
+    ``config`` (its ``MachineConfig``), ``fabric_modes`` (its
+    ``machine.FABRIC_MODES``) and ``workloads`` (the benchmark
+    generators).  The inputs are the reference test's: ``default_rng(33)``
+    draws a 14 x 14 SpMV at 0.35 and its vector, and the BFS runs on
+    ``small_world_graph(20, 4, 3)``.  Returns ``(cfg, request_kwargs,
+    lane_keys)``."""
+    spec = SHARD_LEGS[name]
+    rng = np.random.default_rng(33)
+    a = compiler.random_sparse(14, 14, 0.35, rng)
+    x = rng.integers(-4, 5, size=(14,))
+    rp, col = workloads.small_world_graph(20, 4, 3)
+
+    def cfg_for(w=4, h=4):
+        return config(width=w, height=h, mem_words=1024, max_cycles=100_000)
+
+    built = {}
+    for w, h in {tuple(sz) for sz in spec["sizes"]}:
+        c = cfg_for(w, h)
+        built[w, h] = {"spmv": compiler.build_spmv(a, x, c),
+                       "bfs": compiler.build_bfs(rp, col, 0, c)}
+    modes = list(fabric_modes) if spec["modes"] else [None]
+    wls, lane_modes, keys = [], [], []
+    for i, (w, h) in enumerate(spec["sizes"]):
+        for n in spec["names"]:
+            for m in modes:
+                wls.append(built[w, h][n])
+                lane_modes.append(m)
+                keys.append(f"{n}/{m}@{w}x{h}" if spec["modes"]
+                            else f"{n}@{w}x{h}/{i}")
+    kw = dict(workloads=wls, shard=True, pack=spec.get("pack", False),
+              chunk=spec["chunk"])
+    if spec["modes"]:
+        kw["modes"] = lane_modes
+    return cfg_for(), kw, keys
+
+
+def port_shard_leg(name: str):
+    """:func:`shard_leg` built from the port's own modules."""
+    from repro_torch.bench import workloads
+    from repro_torch.core import compiler, machine
+    return shard_leg(name, compiler=compiler,
+                     config=machine.MachineConfig,
+                     fabric_modes=machine.FABRIC_MODES, workloads=workloads)
+
+
+def shard_record(name: str, keys: list, report) -> dict:
+    """The golden record of one sharded leg's report (reference's or
+    port's), as it reads back from JSON."""
+    return json.loads(json.dumps(dict(
+        spec=SHARD_LEGS[name], n_devices=SHARD_DEVICES,
+        lanes={k: lane_record(r) for k, r in zip(keys, report.lanes)},
+        shard=report.shard.to_json(),
+        pack=None if report.pack is None else report.pack.to_json(),
+        telemetry=report.telemetry.to_json())))
+
+
+def load_shard_golden(path: str = SHARD_GOLDEN_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_shard(got: dict, want: dict) -> None:
+    """Raise unless a sharded leg's record equals the golden one: every
+    lane, the shard plan, the packing schedule and the engine
+    telemetry."""
+    for field in ("spec", "n_devices"):
+        if got[field] != want[field]:
+            raise AssertionError(f"{field} {got[field]} != {want[field]}")
+    check_lanes(got["lanes"], want["lanes"])
+    for field in ("shard", "pack", "telemetry"):
+        if got[field] != want[field]:
+            raise AssertionError(f"{field} {got[field]} != golden "
+                                 f"{want[field]}")
 
 
 def port_sweep_leg(name: str):

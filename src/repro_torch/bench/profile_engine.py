@@ -18,7 +18,7 @@ the mode and the 4x4 mesh baked into the cycle) and on the traced one,
 and prints one JSON line with both records.
 
 ``--fast-forward`` profiles the chain leg of ``golden/sweeps.json``
-instead (8 lanes of a scrambled 512-node pointer chase at 8x8) on the
+instead (8 lanes of a scrambled 256-node pointer chase at 8x8) on the
 compressed tick and on the plain tick (each after the same 32 warm-up
 ticks from the leg's initial state), and prints one JSON line with both
 records.

@@ -17,8 +17,10 @@ over chunks with one host synchronisation per chunk.  Sub-mesh lane
 packing (``run_many(pack=True)``, waves of super-lanes), per-lane
 deadlines and the event-compressed engine (``cfg.fast_forward``, see
 :mod:`repro_torch.core.fastforward`) are ported as in the reference, and
-so is ``shard=True`` on one device; splitting the lane axis over several
-cards is not yet.
+so is ``shard=True``: the lane axis split over a list of devices (which
+may repeat one device), each shard's state on its own device and its
+chunk loop stopping on its own, as the reference's ``shard_map`` engine
+does.
 
 The reference's static golden engines are ported too:
 ``traced_modes=False`` bakes the config's mode flags into the cycle as
@@ -1027,7 +1029,7 @@ def engine_cache_size() -> int:
 
 
 def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
-                n_devices: int = 1):
+                n_devices: int = 1, devices=None):
     """The cached batched runner ``engine(prog, modes, geoms, sub_ids,
     local_ids, st, budget) -> (st, over, idle, ticks)``.
 
@@ -1048,16 +1050,26 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
     one host synchronisation, and both speeds give the same bits, so it
     only steers the ticks a run steps.
 
-    ``n_devices`` > 1 (the lane axis split over several cards) is not
-    ported yet (ROADMAP.md, Queue 1, the multi-device lane split).
+    With ``n_devices`` > 1 the lane axis is split over ``devices`` (that
+    many ``torch.device``s, which may repeat): every argument is then a
+    list with one entry per shard, on that shard's device, and so is
+    every result.  The engine steps every live shard one chunk at a time,
+    in shard order, from one host thread (launches are asynchronous, so
+    distinct cards overlap).  Each shard checks its own idle state, its
+    own lone-flight probe and its own overflow once a chunk and stops on
+    its own, so its ``ticks`` are its own, uniform over its lanes, as in
+    the reference's ``shard_map`` engine.  One cache entry serves one
+    tuple of devices.
     """
     if n_max is None:
         n_max = cfg.n_pes
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"an engine over {n_devices} devices is not ported yet "
-            "(ROADMAP.md, Queue 1: the multi-device lane split)")
     key = _engine_key(cfg, n_max, chunk, n_devices)
+    if n_devices > 1:
+        devices = tuple(torch.device(d) for d in devices)
+        if len(devices) != n_devices:
+            raise ValueError(f"{len(devices)} devices for an engine over "
+                             f"{n_devices}")
+        key += (devices,)
     engine = _ENGINE_CACHE.get(key)
     if engine is not None:
         return engine
@@ -1069,12 +1081,14 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
         ffwd = make_fast_forward(cfg, n_max)
         lone_probe = make_lone_probe()
 
-    def engine(prog, modes, geoms, sub_ids, local_ids, st: MachineState,
+    def chunks(prog, modes, geoms, sub_ids, local_ids, st: MachineState,
                budget):
+        """One lane group's run: a generator that yields after each chunk
+        it enqueues and returns ``(st, over, idle, ticks)``."""
         cycle0 = st.cycle.clone()
         bsz = st.cycle.shape[0]
         over = torch.zeros((bsz,), dtype=torch.bool, device=st.cycle.device)
-        chunks = 0
+        n_chunks = 0
         while True:
             # a lane is live while any of its PEs still advances: its
             # sub-lane has work left, its cycle counter is below the cap
@@ -1096,10 +1110,42 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
             # frozen at max_cycles are exempt.
             high = (st.pend_n >= PEND_CAP - 2) & (st.cycle < cfg.max_cycles)
             over = over | high.any(1)
-            chunks += 1
-        ticks = torch.full((bsz,), chunks * chunk, dtype=torch.int32,
+            n_chunks += 1
+            yield
+        ticks = torch.full((bsz,), n_chunks * chunk, dtype=torch.int32,
                            device=st.cycle.device)
         return st, over, group_idle(st, sub_ids), ticks
+
+    if n_devices == 1:
+        def engine(prog, modes, geoms, sub_ids, local_ids, st: MachineState,
+                   budget):
+            run = chunks(prog, modes, geoms, sub_ids, local_ids, st, budget)
+            while True:
+                try:
+                    next(run)
+                except StopIteration as done:
+                    return done.value
+    else:
+        def engine(prog, modes, geoms, sub_ids, local_ids, st, budget):
+            args = (prog, modes, geoms, sub_ids, local_ids, st, budget)
+            if any(len(a) != n_devices for a in args):
+                raise ValueError(f"an engine over {n_devices} devices takes "
+                                 "one entry per shard in every argument")
+            for s, dev in enumerate(devices):
+                if st[s].cycle.device != dev:
+                    raise ValueError(f"shard {s}'s state is on "
+                                     f"{st[s].cycle.device}, not {dev}")
+            runs = {s: chunks(*(a[s] for a in args))
+                    for s in range(n_devices)}
+            out: list = [None] * n_devices
+            while runs:
+                for s in list(runs):
+                    try:
+                        next(runs[s])
+                    except StopIteration as done:
+                        out[s] = done.value
+                        del runs[s]
+            return tuple(list(r) for r in zip(*out))
 
     _ENGINE_CACHE[key] = engine
     return engine
@@ -1116,12 +1162,39 @@ def run_engine(cfg: MachineConfig, prog, modes, geoms, sub_ids, local_ids,
     return engine(prog, modes, geoms, sub_ids, local_ids, st, budget)
 
 
-def device_count(device) -> int:
-    """Cards a lane axis on ``device`` may be split over: every visible
-    CUDA device for a CUDA device, 1 for the CPU."""
-    if torch.device(device).type == "cuda":
-        return torch.cuda.device_count()
-    return 1
+def shard_devices(device="cuda", devices=None) -> list:
+    """The devices a ``shard=True`` run may split its lane axis over:
+    ``devices``, checked to exist (a device may repeat: ``[cpu] * 4`` is
+    four shards on the CPU), by default every visible card of
+    ``device``'s type (the one CPU device for the CPU), ``device`` first
+    when it names its card, so that a split into one shard runs there.
+    The torch counterpart of the reference's ``jax.devices()``."""
+    from repro_torch.launch.mesh import check_devices, visible_devices
+    if devices is None:
+        devices = visible_devices(device)
+        if not devices:
+            raise ValueError(f"shard=True: no visible {device} device")
+        named = torch.device(device)
+        if named in devices:
+            devices = [named] + [d for d in devices if d != named]
+    return check_devices(devices)
+
+
+def split_lanes(a, devices) -> list:
+    """Cut the leading lane axis of host array ``a`` into ``len(devices)``
+    equal contiguous groups, each an int32 tensor on its device that owns
+    its memory (never a view of ``a``)."""
+    a = np.asarray(a, np.int32)
+    per = a.shape[0] // len(devices)
+    return [torch.tensor(a[s * per:(s + 1) * per], device=dev)
+            for s, dev in enumerate(devices)]
+
+
+def gather_host(shards: list) -> dict:
+    """:func:`_host_stats` of every shard's state, concatenated on the lane
+    axis in shard order."""
+    parts = [_host_stats(st) for st in shards]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 def _pe_slice_result(st_host: dict, done: bool, b: int,
@@ -1182,7 +1255,8 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                    shard: bool = False, cycle_hints=None,
                    shard_stats: dict | None = None,
                    telemetry: dict | None = None,
-                   deadlines=None, device="cuda") -> list[RunResult]:
+                   deadlines=None, device="cuda",
+                   devices=None) -> list[RunResult]:
     """Simulate B workloads in one batched run on ``device``.
 
     The plumbing behind :func:`run_many` and
@@ -1214,14 +1288,20 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
       pack_stats: optional dict that ``pack=True`` fills with the
         schedule's ``n_waves`` / ``n_super_lanes`` /
         ``packing_efficiency`` / ``unpacked_efficiency`` / ``plan``.
-      shard: split the lane axis over the cards of ``device``'s type
-        (``torch.cuda.device_count()`` for a CUDA device, 1 for the
-        CPU), capped at the batch size.  On one device this is the plain
-        engine through the same cache entry, as in the reference; over
-        several it is not ported yet (ROADMAP.md, Queue 1) and
-        raises :class:`NotImplementedError`.
+      shard: split the lane axis over ``devices`` (capped at the batch
+        size, as in the reference).  Lanes are balanced over the shards
+        by :func:`repro_torch.core.batch.plan_shards` and the batch is
+        padded to a multiple of the shard count with inert 1x1 lanes;
+        each shard's lanes live on its own device and stop on their own
+        (per-shard ``ticks`` and telemetry), and results come back in
+        input order, bit-identical to the unsharded run.  On one device
+        this is the plain engine through the same cache entry, on
+        ``devices[0]``.  Composes with ``pack=True``: the wave planner is
+        told the shard count, and each wave's super-lanes shard on their
+        own.
       cycle_hints: optional per-input-lane cycle counts replacing the
-        static cost model in the wave planner (``pack=True``).
+        static cost model in the wave planner (``pack=True``) and the
+        shard balancer (``shard=True``).
       shard_stats: optional dict filled with the device plan
         (``n_devices``, ``lanes_per_device``, ``n_pad_lanes``, ``plan``).
       telemetry: optional dict accumulating, over every engine call of the
@@ -1233,7 +1313,14 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         unbounded).  A lane makes no state transition past its deadline
         and comes back frozen there with ``completed=False``; co-tenant
         sub-lanes and other lanes are unaffected (the budget is per PE).
-      device: where the state lives and the engine runs.
+      device: where the state lives and the engine runs (without
+        ``shard``), and the type whose visible cards ``devices`` defaults
+        to.
+      devices: the devices ``shard=True`` splits the lanes over, in shard
+        order; a device may repeat (``[cpu] * 4`` runs four shards on the
+        CPU, ``[cuda:0] * 4`` four logical shards on one card).  Default:
+        every visible card of ``device``'s type.  A device that does not
+        exist raises :class:`ValueError`.
 
     Returns:
       One :class:`RunResult` per lane, in input order, bit-identical to the
@@ -1268,9 +1355,18 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
             # planner's load signal (hints steer scheduling only).
             from repro_torch.core.batch import static_cycle_hints
             cycle_hints = static_cycle_hints(wls)
+        # a sharded schedule may run up to one super-lane per device side
+        # by side without coupling their makespans, so the wave planner
+        # gets the shard count as its parallel width (capped at the lane
+        # count, like the shard plan itself)
+        parallel = 1
+        if shard:
+            devices = shard_devices(device, devices)
+            parallel = min(len(devices), len(wls))
         batches, waves, stats = pack_schedule(wls, modes=modes,
                                               super_geom=super_geom,
-                                              cycle_hints=cycle_hints)
+                                              cycle_hints=cycle_hints,
+                                              parallel=parallel)
         # certify rectangle confinement before any cycle runs: no rebased
         # AM or meta_pe word may target a PE outside its own sub-lane.
         from repro_torch.analysis.checks import (check_packed_batch,
@@ -1303,7 +1399,8 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                                           cycle_hints=hints_w,
                                           shard_stats=ws,
                                           telemetry=telemetry,
-                                          deadlines=dls_w, device=device)
+                                          deadlines=dls_w, device=device,
+                                          devices=devices)
             except RuntimeError as e:
                 supers = getattr(e, "lanes", None)
                 if supers is None:
@@ -1394,7 +1491,7 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
         local_ids = np.tile(np.arange(n_max, dtype=np.int32),
                             (workloads.batch, 1))
     if cycle_hints is not None:
-        validate_hints(cycle_hints, workloads.batch)
+        cycle_hints = validate_hints(cycle_hints, workloads.batch)
 
     # --- per-PE cycle budget (deadlines) ------------------------------
     # INT32_MAX everywhere by default, a lane's own deadline on its rows
@@ -1416,43 +1513,97 @@ def _run_many_impl(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                 if dl is not None:
                     budget[b, :] = dl
     # --- lane-axis device sharding ------------------------------------
-    # One device (or shard off): the plain engine, the same cache entry.
-    # The device count is capped at the batch size, as in the reference.
-    n_dev = min(device_count(device), workloads.batch) if shard else 1
+    # Lanes never interact, so the batch shards freely over devices: the
+    # plan balances real lanes by runtime estimate, the lane arrays are
+    # gathered into shard-major order (inert all-zero 1x1 lanes, idle at
+    # cycle 0, pad B to a multiple of the shard count), and results are
+    # gathered back to input order below.  One device (or shard off) is
+    # one group of every lane in input order on the plain engine, the
+    # same cache entry.  The shard count is capped at the batch size, as
+    # in the reference.
+    n_dev = 1
+    shard_devs = [device]
+    if shard:
+        devices = shard_devices(device, devices)
+        n_dev = min(len(devices), workloads.batch)
+        device = devices[0]
+        shard_devs = devices[:n_dev]
+    dev_plan = [list(range(workloads.batch))]
     if n_dev > 1:
-        raise NotImplementedError(
-            f"run_many(shard=True) over {n_dev} devices is not ported yet "
-            "(ROADMAP.md, Queue 1: the multi-device lane split); "
-            "on one device it runs the plain engine")
+        from repro_torch.core.batch import plan_shards, shard_loads
+        geom_list = [tuple(g) for g in lane_geoms]
+        loads = cycle_hints
+        if loads is None:
+            # the inverse-area proxy calls a 1x1 mesh the longest lane,
+            # but a lane with nothing to inject is idle at cycle 0
+            work = np.asarray(workloads.amq_len).sum(axis=1)
+            loads = [0.0 if w == 0 else ld
+                     for w, ld in zip(work, shard_loads(geom_list))]
+        dev_plan = plan_shards(geom_list, n_dev, cycle_hints=loads)
+    order = [i for dev in dev_plan for i in dev]
+    inv = np.empty((workloads.batch,), np.int64)
+    for pos, lane in enumerate(order):
+        if lane >= 0:
+            inv[lane] = pos
+    per_dev = len(order) // n_dev
     if shard_stats is not None:
-        shard_stats.update(n_devices=1, lanes_per_device=workloads.batch,
-                           n_pad_lanes=0,
-                           plan=[list(range(workloads.batch))])
+        shard_stats.update(n_devices=n_dev, lanes_per_device=per_dev,
+                           n_pad_lanes=len(order) - workloads.batch,
+                           plan=dev_plan)
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+    at = np.asarray(order)
 
-    st = init_state(cfg, workloads.static_ams, workloads.amq_len,
-                    workloads.mem_val, workloads.mem_meta, device=device)
-    engine = _get_engine(cfg, chunk, n_max)
-    st, over, idle, ticks = engine(
-        t(workloads.prog), t(lane_modes), t(lane_geoms), t(sub_ids),
-        t(local_ids), st, t(budget))
-    host = _host_stats(st)
+    def lanes(a, pad_row=0) -> np.ndarray:
+        """``a`` in shard-major order, pad lanes all ``pad_row``."""
+        out = np.asarray(a, np.int32)[np.maximum(at, 0)]
+        out[at < 0] = pad_row
+        return out
+
+    def shards(a, pad_row=0) -> list:
+        return split_lanes(lanes(a, pad_row), shard_devs)
+
+    inits = [lanes(a) for a in (workloads.static_ams, workloads.amq_len,
+                                workloads.mem_val, workloads.mem_meta)]
+    sts = [init_state(cfg, *(a[s * per_dev:(s + 1) * per_dev]
+                             for a in inits), device=dev)
+           for s, dev in enumerate(shard_devs)]
+    engine = _get_engine(cfg, chunk, n_max, n_devices=n_dev,
+                         devices=shard_devs)
+    args = (shards(workloads.prog), shards(lane_modes),
+            shards(lane_geoms, pad_row=np.array([1, 1], np.int32)),
+            shards(sub_ids),
+            shards(local_ids, pad_row=np.arange(n_max, dtype=np.int32)),
+            sts,
+            shards(budget, pad_row=np.full((n_max,), int(ENGINE_UNBOUNDED),
+                                           np.int32)))
+    if n_dev == 1:
+        # the plain engine takes and returns one group's tensors
+        sts, overs, idles, ticks = (
+            [r] for r in engine(*(a[0] for a in args)))
+    else:
+        sts, overs, idles, ticks = engine(*args)
+    groups = [(s * per_dev, (s + 1) * per_dev, int(ticks[s][0]))
+              for s in range(n_dev)]
+    host = gather_host(sts)
+    over = np.concatenate([o.cpu().numpy() for o in overs])
+    idle = np.concatenate([i.cpu().numpy() for i in idles])
     if telemetry is not None:
         # PE-steps stepped vs what the plain tick-per-cycle engine steps
-        # to reach the same final cycle counts (chunk granularity).
-        bsz = workloads.batch
-        want = int(host["cycle"].max())
-        telemetry["stepped_pe_ticks"] = (
-            telemetry.get("stepped_pe_ticks", 0)
-            + int(ticks[0]) * bsz * n_max)
-        telemetry["plain_pe_ticks"] = (
-            telemetry.get("plain_pe_ticks", 0)
-            + -(-want // chunk) * chunk * bsz * n_max)
+        # to reach the same final cycle counts (chunk granularity), per
+        # shard: each shard's ticks are its own.
+        for g0, g1, g_ticks in groups:
+            want = int(host["cycle"][g0:g1].max())
+            telemetry["stepped_pe_ticks"] = (
+                telemetry.get("stepped_pe_ticks", 0)
+                + g_ticks * (g1 - g0) * n_max)
+            telemetry["plain_pe_ticks"] = (
+                telemetry.get("plain_pe_ticks", 0)
+                + -(-want // chunk) * chunk * (g1 - g0) * n_max)
         telemetry["engine_calls"] = telemetry.get("engine_calls", 0) + 1
-    over = over.cpu().numpy()
-    idle = idle.cpu().numpy()                    # (B, N) per-PE group idle
+    # gather back to input-lane order (drops the inert pad lanes) before
+    # overflow lanes are named and results are sliced
+    over, idle = over[inv], idle[inv]
+    host = {k: v[inv] for k, v in host.items()}
     if over.any():
         bad = np.nonzero(over)[0].tolist()
         err = RuntimeError("pending-FIFO overflow: consumption guarantee "
@@ -1481,8 +1632,11 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
              super_geom=None, pack_stats: dict | None = None,
              shard: bool = False, cycle_hints=None,
              shard_stats: dict | None = None,
-             deadlines=None, device="cuda") -> list[RunResult]:
-    """Simulate B workloads in one batched run on ``device``.
+             deadlines=None, device="cuda",
+             devices=None) -> list[RunResult]:
+    """Simulate B workloads in one batched run on ``device`` (with
+    ``shard=True``, split over ``devices``: by default every visible card
+    of ``device``'s type).
 
     See :func:`_run_many_impl` for the argument contract.  Prefer the
     structured surface, :class:`repro_torch.core.sweep.SweepRequest` in,
@@ -1508,7 +1662,8 @@ def run_many(cfg: MachineConfig, workloads, *, modes=None, geoms=None,
                           chunk=chunk, pack=pack, super_geom=super_geom,
                           pack_stats=pack_stats, shard=shard,
                           cycle_hints=cycle_hints, shard_stats=shard_stats,
-                          deadlines=deadlines, device=device)
+                          deadlines=deadlines, device=device,
+                          devices=devices)
 
 
 def run(cfg: MachineConfig, prog: np.ndarray, static_ams: np.ndarray,

@@ -10,14 +10,15 @@ out — a port of the reference's ``repro.core.sweep``.
   (:class:`ShardStats`) and engine (:class:`EngineTelemetry`) records as
   typed fields.  Iterates and indexes like the result list.
 * :func:`sweep` — the entry point, ``sweep(cfg, request, *,
-  device="cuda")``.  It calls the same implementation as ``run_many``
-  (:func:`repro_torch.core.machine._run_many_impl`), so the two give the
-  same bits.
+  device="cuda", devices=None)``.  It calls the same implementation as
+  ``run_many`` (:func:`repro_torch.core.machine._run_many_impl`), so the
+  two give the same bits.
 
-``shard=True`` runs on one device, the plain engine through the same
-cache entry, and reports the one-device plan in ``SweepReport.shard``;
-splitting the lane axis over several cards is not ported yet (ROADMAP.md,
-Queue 1) and raises :class:`NotImplementedError`.
+``shard=True`` splits the lane axis over ``devices`` (by default every
+visible card of ``device``'s type; a list may repeat one device, so
+``[cpu] * 4`` runs four shards on the CPU) and reports the plan in
+``SweepReport.shard``: the shard count, lanes per shard, inert pad lanes
+and the lanes of each shard (per wave, when packed).
 """
 from __future__ import annotations
 
@@ -48,9 +49,8 @@ class SweepRequest:
       surface.
     * ``pack`` / ``super_geom`` — sub-mesh lane packing into shared
       super-lanes (``geoms`` must then be None: the packer places lanes).
-    * ``shard`` — lane-axis sharding over the cards of the sweep's
-      device type (one device: the plain engine; several: not ported
-      yet, :class:`NotImplementedError`).
+    * ``shard`` — lane-axis sharding over the devices :func:`sweep` is
+      given (one device: the plain engine, the same cache entry).
     * ``chunk`` — engine ticks between the engine's idle checks.
     * ``validate`` — pre-dispatch static verification tier
       (:mod:`repro_torch.analysis`): ``"static"`` (default) rejects lanes with
@@ -234,9 +234,10 @@ class SweepReport:
 
 
 def sweep(cfg: MachineConfig, request: SweepRequest, *,
-          device="cuda") -> SweepReport:
+          device="cuda", devices=None) -> SweepReport:
     """Run one :class:`SweepRequest` to completion on ``device`` and
-    report it.
+    report it; with ``request.shard`` the lanes split over ``devices``
+    (default: every visible card of ``device``'s type).
 
     Blocking, with the same bits as the ``run_many`` surface (both call
     the same implementation).  ``validate`` other than ``"off"`` runs the
@@ -273,7 +274,7 @@ def sweep(cfg: MachineConfig, request: SweepRequest, *,
         shard_stats=ss, telemetry=tm,
         deadlines=(None if request.deadlines is None
                    else list(request.deadlines)),
-        device=device)
+        device=device, devices=devices)
     pack = None if ps is None else PackStats(
         n_waves=ps["n_waves"], n_super_lanes=ps["n_super_lanes"],
         packing_efficiency=ps["packing_efficiency"],

@@ -62,7 +62,9 @@ slicing — running budget b then b' is bit-identical to b + b', so
 
 Every tensor lives on the service's explicit ``device`` (default
 ``"cuda"``): the scheduler is its own thread, and torch's current CUDA
-device is per thread.
+device is per thread.  With ``shard=True`` the super-lanes split into
+contiguous groups over ``devices``, each group's state on its own device,
+as the reference's ``shard_map`` splits them.
 """
 from __future__ import annotations
 
@@ -79,9 +81,10 @@ from repro_torch.core.am import C_NEXT_PC
 from repro_torch.core.batch import (RectPool, SubLane, _rebase_into_super,
                                     bucket)
 from repro_torch.core.machine import (MachineConfig, MachineState, RunResult,
-                                      _get_engine, _host_stats,
-                                      _pe_slice_result, device_count,
-                                      init_state, mode_code, resolve_mode)
+                                      _get_engine, _pe_slice_result,
+                                      gather_host, init_state, mode_code,
+                                      resolve_mode, shard_devices,
+                                      split_lanes)
 
 
 class ServiceError(RuntimeError):
@@ -251,12 +254,12 @@ class SweepService:
       slice_chunks: engine chunks per scheduler slice — the refill
         latency knob: retirement and refill happen between slices, every
         ``chunk * slice_chunks`` fabric cycles.
-      shard: split the super-lane axis over the cards of ``device``'s
-        type (the largest divisor of ``n_supers`` no larger than the
-        device count).  With one card that is 1: the plain engine and
-        one cache entry.  A split over several cards is not ported yet
-        (ROADMAP.md, Queue 1) and raises :class:`NotImplementedError`
-        when the arena is built.
+      shard: split the super-lane axis into contiguous groups over
+        ``devices``, as many as the largest divisor of ``n_supers`` no
+        larger than the device count: each group's state lives on its
+        own device and its engine loop stops on its own (per-shard ticks
+        and telemetry, as in the reference).  With one device that is
+        one group: the plain engine and one cache entry.
       fault_hook: optional ``hook(phase, service)`` called at
         ``"install"`` (before the install update), ``"pre_slice"``
         (after admission, before the engine call — the retry/kill-safe
@@ -278,7 +281,13 @@ class SweepService:
       checkpoint_every: slices between snapshots (with
         ``checkpoint_root``).
       checkpoint_keep: newest checkpoints retained.
-      device: where the resident state lives and the engine runs.
+      device: where the resident state lives and the engine runs (without
+        ``shard``), and the type whose visible cards ``devices`` defaults
+        to.
+      devices: the devices ``shard=True`` splits the super-lanes over, in
+        shard order (default: every visible card of ``device``'s type);
+        a device may repeat (``[cpu] * 4``, ``[cuda:0] * 2``).  A device
+        that does not exist raises :class:`ValueError` here.
 
     Thread model: ``submit`` / ``drain`` / ``shutdown`` are safe from
     any thread; ALL device work happens on the single scheduler thread
@@ -294,7 +303,7 @@ class SweepService:
                  retry: RetryPolicy | None = None,
                  checkpoint_root: str | None = None,
                  checkpoint_every: int = 8, checkpoint_keep: int = 3,
-                 device="cuda"):
+                 device="cuda", devices=None):
         if not (cfg.traced_modes and cfg.traced_geometry):
             raise ValueError("SweepService needs the traced engine axes "
                              "(cfg.traced_modes and cfg.traced_geometry)")
@@ -310,6 +319,8 @@ class SweepService:
         self._chunk = int(chunk)
         self._slice_chunks = int(slice_chunks)
         self._shard = bool(shard)
+        self._shard_devs = (shard_devices(self._device, devices)
+                            if self._shard else None)
         self._fault_hook = fault_hook
         self._retry = retry if retry is not None else RetryPolicy()
 
@@ -581,12 +592,18 @@ class SweepService:
         self._cfg = cfg
 
         n_dev = 1
+        devs = [self._device]
         if self._shard:
-            n_avail = min(device_count(self._device), b)
+            n_avail = min(len(self._shard_devs), b)
             n_dev = max(d for d in range(1, n_avail + 1) if b % d == 0)
+            devs = self._shard_devs[:n_dev]
         self._n_dev = n_dev
+        # shard s holds super-lanes groups[s] on devs[s]
+        self._devs = devs
+        per = b // n_dev
+        self._groups = [slice(s * per, (s + 1) * per) for s in range(n_dev)]
         self._engine = _get_engine(cfg, self._chunk, n_max=n,
-                                   n_devices=n_dev)
+                                   n_devices=n_dev, devices=devs)
 
         # host arrays, as the reference keeps them; their device copies
         # are uploaded only after an install changes them
@@ -597,12 +614,13 @@ class SweepService:
         self._sub_ids = np.zeros((b, n), np.int32)
         self._local_ids = np.tile(np.arange(n, dtype=np.int32), (b, 1))
         self._mirrors = None
-        self._st = init_state(
-            cfg, np.zeros((b, n, self._q_cap, msg_f), np.int32),
-            np.zeros((b, n), np.int32),
-            np.zeros((b, n, self._m_cap), np.int32),
-            np.zeros((b, n, self._m_cap, 2), np.int32),
-            device=self._device)
+        # one MachineState per shard, on the shard's device
+        self._st = [init_state(
+            cfg, np.zeros((per, n, self._q_cap, msg_f), np.int32),
+            np.zeros((per, n), np.int32),
+            np.zeros((per, n, self._m_cap), np.int32),
+            np.zeros((per, n, self._m_cap, 2), np.int32),
+            device=dev) for dev in devs]
         # host mirror of the per-PE cycle counters as of the last slice
         # boundary (installs zero their rows): the per-slice deadline
         # budgets and the dead-step telemetry read it without a sync
@@ -613,19 +631,24 @@ class SweepService:
         self._super_mode: list[int | None] = [None] * b
         self._built = True
 
-    def _tensor(self, a) -> torch.Tensor:
-        """A host array -> an int32 tensor on the service's device that
-        owns its memory (never a view of the host array)."""
-        return torch.tensor(np.asarray(a, np.int32), device=self._device)
-
-    def _device_mirrors(self) -> tuple:
-        """The engine's per-lane inputs on the device, uploaded only when
-        an install has changed the host arrays since the last slice."""
+    def _device_mirrors(self) -> list:
+        """The engine's per-lane inputs, one list per argument with an
+        entry per shard, uploaded only when an install has changed the
+        host arrays since the last slice."""
         if self._mirrors is None:
-            self._mirrors = tuple(self._tensor(a) for a in (
+            self._mirrors = [split_lanes(a, self._devs) for a in (
                 self._prog, self._modes, self._geoms, self._sub_ids,
-                self._local_ids))
+                self._local_ids)]
         return self._mirrors
+
+    def _run_slice(self, budget: np.ndarray) -> tuple:
+        """One engine call over every shard: ``(sts, overs, idles,
+        ticks)``, each a list with an entry per shard."""
+        args = self._device_mirrors() + [self._st,
+                                         split_lanes(budget, self._devs)]
+        if self._n_dev == 1:
+            return tuple([r] for r in self._engine(*(a[0] for a in args)))
+        return self._engine(*args)
 
     # ------------------------------------------------------------------
     # scheduler (single thread; owns all device work)
@@ -763,13 +786,13 @@ class SweepService:
             break
         # past this point a failure is fatal: the engine updates the
         # resident state's queues and memory in place
-        st, over, idle, ticks = self._engine(
-            *self._device_mirrors(), self._st, self._tensor(budget))
-        self._st = st
-        over = over.cpu().numpy()
-        idle = idle.cpu().numpy()
-        cyc = st.cycle.to("cpu", copy=True).numpy()
-        t_np = ticks.cpu().numpy()
+        sts, overs, idles, ticks = self._run_slice(budget)
+        self._st = sts
+        over = np.concatenate([o.cpu().numpy() for o in overs])
+        idle = np.concatenate([i.cpu().numpy() for i in idles])
+        cyc = np.concatenate([s.cycle.to("cpu", copy=True).numpy()
+                              for s in sts])
+        t_np = np.concatenate([t.cpu().numpy() for t in ticks])
         self.stats["n_slices"] += 1
         self.stats["engine_ticks"] += int(t_np.max(initial=0))
         b, n = self._sub_ids.shape
@@ -797,7 +820,7 @@ class SweepService:
                     f"(simulator invariant; super-lanes {bad})")
                 self._cond.notify_all()
             return
-        self._retire(idle, st, cyc)
+        self._retire(idle, cyc)
         self._maybe_checkpoint()
 
     def _admit(self) -> None:
@@ -870,7 +893,7 @@ class SweepService:
         n = self._sub_ids.shape[1]
         mask = np.zeros((b, n), bool)
         new = dict(
-            amq=np.zeros((b, n, self._q_cap, self._st.amq.shape[-1]),
+            amq=np.zeros((b, n, self._q_cap, self._st[0].amq.shape[-1]),
                          np.int32),
             amq_len=np.zeros((b, n), np.int32),
             mem_val=np.zeros((b, n, self._m_cap), np.int32),
@@ -905,20 +928,25 @@ class SweepService:
         # masked per-row reset to the exact init_state image plus the new
         # lane's compiler outputs; rows outside the mask keep their bits,
         # so co-tenants cannot observe an install.  The new arrays are
-        # copied onto the device (the engine later updates mem_val in
-        # place, which must never reach a client's workload arrays).
-        m = torch.tensor(mask, device=self._device)
-        leaves = {}
-        for name in MachineState._fields:
-            old = getattr(self._st, name)
-            mk = m.reshape(m.shape + (1,) * (old.ndim - 2))
-            if name in _PUT_LEAVES:
-                leaves[name] = torch.where(mk, self._tensor(new[name]), old)
-            else:
-                leaves[name] = old.masked_fill(mk, 0)
-        self._st = MachineState(**leaves)
+        # copied onto each shard's device (the engine later updates
+        # mem_val in place, which must never reach a client's workload
+        # arrays); a shard with no masked row keeps its state.
+        for s, (g, dev) in enumerate(zip(self._groups, self._devs)):
+            if not mask[g].any():
+                continue
+            m = torch.tensor(mask[g], device=dev)
+            leaves = {}
+            for name in MachineState._fields:
+                old = getattr(self._st[s], name)
+                mk = m.reshape(m.shape + (1,) * (old.ndim - 2))
+                if name in _PUT_LEAVES:
+                    put = torch.tensor(new[name][g], device=dev)
+                    leaves[name] = torch.where(mk, put, old)
+                else:
+                    leaves[name] = old.masked_fill(mk, 0)
+            self._st[s] = MachineState(**leaves)
 
-    def _retire(self, idle: np.ndarray, st, cycle: np.ndarray) -> None:
+    def _retire(self, idle: np.ndarray, cycle: np.ndarray) -> None:
         """Resolve every resident whose sub-lane went idle, hit the
         cycle cap, or exhausted its deadline, and free its rectangle
         for the next admission."""
@@ -944,7 +972,7 @@ class SweepService:
         # the result-bearing leaves (memory image included) only cross to
         # host when something actually retires, as copies that the next
         # slice cannot overwrite
-        host = _host_stats(st)
+        host = gather_host(self._st)
         # resolve the futures BEFORE removing the residents: drain()
         # unblocks on empty pending+residents, and must never observe an
         # "all drained" state while a result is still unset.
@@ -1003,6 +1031,16 @@ class SweepService:
         self._ckpt_step += 1
         self.stats["n_checkpoints"] += 1
 
+    def _whole_state(self) -> MachineState:
+        """The resident state of every super-lane as one
+        ``MachineState``: the one shard's own tensors, or the shards'
+        concatenated on the host in shard order (a copy)."""
+        if self._n_dev == 1:
+            return self._st[0]
+        return MachineState(*(
+            torch.cat([getattr(st, f).cpu() for st in self._st])
+            for f in MachineState._fields))
+
     def _wl_arrays(self, wl) -> dict:
         out = {}
         for f in _WL_FIELDS:
@@ -1016,7 +1054,7 @@ class SweepService:
         holds the condition lock, at a slice boundary.  The tree's keys,
         structure and ``extra`` are the reference's."""
         tree = {
-            "st": self._st,
+            "st": self._whole_state(),
             "prog": self._prog.copy(), "modes": self._modes.copy(),
             "geoms": self._geoms.copy(), "sub_ids": self._sub_ids.copy(),
             "local_ids": self._local_ids.copy(),
@@ -1042,7 +1080,7 @@ class SweepService:
                        n_supers=self._n_supers, n_slots=self._n_slots,
                        p_slot=self._p_slot, q_cap=self._q_cap,
                        m_cap=self._m_cap,
-                       msg_f=int(self._st.amq.shape[-1]),
+                       msg_f=int(self._st[0].amq.shape[-1]),
                        cfg_f=int(self._prog.shape[-1]),
                        chunk=self._chunk,
                        slice_chunks=self._slice_chunks,
@@ -1083,9 +1121,10 @@ class SweepService:
                 fault_hook=None, retry: RetryPolicy | None = None,
                 checkpoint_root: str | None = None,
                 checkpoint_every: int = 8, checkpoint_keep: int = 3,
-                device="cuda") -> "SweepService":
+                device="cuda", devices=None) -> "SweepService":
         """Resume a checkpointed service after a process death, on
-        ``device``.
+        ``device`` (a sharded one over ``devices``, split as the
+        constructor splits it, whatever split wrote the checkpoint).
 
         Rebuilds the arena for the exact checkpointed shapes, reloads
         the packed super-lane ``MachineState``, program arena, RectPool
@@ -1126,7 +1165,8 @@ class SweepService:
                   fault_hook=fault_hook, retry=retry,
                   checkpoint_root=checkpoint_root,
                   checkpoint_every=checkpoint_every,
-                  checkpoint_keep=checkpoint_keep, device=device)
+                  checkpoint_keep=checkpoint_keep, device=device,
+                  devices=devices)
         try:
             svc._restore_from(root, step, extra)
         except BaseException:
@@ -1142,7 +1182,7 @@ class SweepService:
                           int(ar["m_cap"]), int(ar["msg_f"]),
                           int(ar["cfg_f"]))
         tree_like = {
-            "st": self._st,
+            "st": self._whole_state(),
             "prog": self._prog, "modes": self._modes,
             "geoms": self._geoms, "sub_ids": self._sub_ids,
             "local_ids": self._local_ids,
@@ -1150,8 +1190,11 @@ class SweepService:
         for i, p in enumerate(extra["pending"]):
             for f, (shape, _) in p["shapes"].items():
                 tree_like[f"pend_{i:04d}_{f}"] = np.zeros(shape, np.int32)
-        tree, _, _ = restore_checkpoint(root, tree_like, step=step,
-                                        device=self._device)
+        # one device: restored onto it; several: onto the host, then
+        # each shard's rows copied onto its device
+        tree, _, _ = restore_checkpoint(
+            root, tree_like, step=step,
+            device=self._devs[0] if self._n_dev == 1 else "cpu")
 
         def host(name) -> np.ndarray:
             return tree[name].cpu().numpy().astype(np.int32)
@@ -1168,7 +1211,13 @@ class SweepService:
                 t_submit=now)
 
         with self._cond:
-            self._st = tree["st"]
+            if self._n_dev == 1:
+                self._st = [tree["st"]]
+            else:
+                self._st = [MachineState(*(
+                    getattr(tree["st"], f)[g].to(dev, copy=True)
+                    for f in MachineState._fields))
+                    for g, dev in zip(self._groups, self._devs)]
             # writable host copies: installs update these in place
             self._prog = host("prog")
             self._modes = host("modes")
@@ -1176,7 +1225,8 @@ class SweepService:
             self._sub_ids = host("sub_ids")
             self._local_ids = host("local_ids")
             self._mirrors = None
-            self._cycle_host = self._st.cycle.to("cpu", copy=True).numpy()
+            self._cycle_host = np.concatenate(
+                [st.cycle.to("cpu", copy=True).numpy() for st in self._st])
             self._seq = int(extra["seq"])
             for k, v in extra.get("stats", {}).items():
                 if k in self.stats:

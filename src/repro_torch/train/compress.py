@@ -1,17 +1,17 @@
-"""Int8 gradient compression with error feedback: the port of
-``quantize``, ``dequantize`` and ``compress_tree`` from the reference's
-``repro/train/compress.py``.
+"""Int8 gradient compression with error feedback: the port of the
+reference's ``repro/train/compress.py``.
 
 Per-tensor symmetric quantization: g ~= scale * int8.  The quantization
 error is fed back into the next step's gradient (error feedback keeps the
-compression unbiased over time).  The reference's ``psum_compressed``, the
-all-reduce of the int8 payloads, needs a collective and waits for the
-port's ``distributed/`` slice (ROADMAP.md, Queue 1).
+compression unbiased over time).  :func:`psum_compressed` all-reduces the
+dequantized int8 payloads over an axis of a
+:class:`repro_torch.launch.mesh.Mesh`, one gradient tree per shard.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import Mesh, map_shards, psum
 from repro_torch.train.optimizer import tree_map
 
 
@@ -40,3 +40,20 @@ def compress_tree(grads, error):
     new_error = tree_map(lambda a, q, s: a - dequantize(q, s), adjusted,
                          payload, scales)
     return payload, scales, new_error
+
+
+def psum_compressed(grads: list, error: list | None, *, mesh: Mesh,
+                    axis: str):
+    """All-reduce int8 payloads over ``axis``: ``grads`` and ``error`` are
+    lists with one tree per shard (``error`` None, or None entries, start
+    at zero), each on its shard's device.  Every shard compresses its own
+    ``grads + error`` (:func:`compress_tree`); returns ``(summed,
+    new_error)``, per-shard lists: each shard's sum of every shard's
+    dequantized payload (a psum in shard order, f32) and each shard's new
+    error feedback."""
+    if error is None:
+        error = [None] * len(grads)
+    packs = [compress_tree(g, e) for g, e in zip(grads, error)]
+    deq = [tree_map(dequantize, p, sc) for p, sc, _ in packs]
+    summed = map_shards(lambda xs: psum(xs, mesh, axis), deq)
+    return summed, [e for _, _, e in packs]

@@ -51,7 +51,9 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.launch.train_100m", "repro_torch.convert",
               "repro_torch.bench.profile_train", "repro_torch.sparse",
               "repro_torch.sparse.formats", "repro_torch.sparse.ops",
-              "repro_torch.testing"):
+              "repro_torch.testing", "repro_torch.launch.mesh",
+              "repro_torch.launch.sparse_dispatch",
+              "repro_torch.bench.multidevice"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -115,6 +117,7 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.convert.tree_from_numpy",
               "repro_torch.convert.adamw_from_numpy",
               "repro_torch.core.machine.run_many",
+              "repro_torch.core.machine.shard_devices",
               "repro_torch.core.sweep.sweep",
               "repro_torch.bench.fig17.run_grid_report"):
         assert f in seen, f

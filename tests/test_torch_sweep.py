@@ -176,8 +176,8 @@ def test_request_is_frozen_and_validates_early(mixed):
 def test_error_paths(mixed, monkeypatch):
     """The reference's errors: a prestacked batch or a geometry override
     under pack, hints of the wrong length, a corrupted packed batch
-    (rectangle escape, caught before any cycle), and shard=True over
-    several devices, which is not ported yet."""
+    (rectangle escape, caught before any cycle), and shard=True over a
+    device that does not exist (no fallback to another device)."""
     wls = mixed[0]
     with pytest.raises(ValueError, match="already stacked"):
         machine.run_many(_cfg(), batch.stack_workloads(wls[:1]), pack=True,
@@ -188,12 +188,13 @@ def test_error_paths(mixed, monkeypatch):
     with pytest.raises(ValueError, match="cycle hints for"):
         machine.run_many(_cfg(), wls, pack=True, cycle_hints=[1.0],
                          device="cpu")
-    # shard=True runs on one device (tests/test_torch_machine.py holds it
-    # to the reference); the split over several is not ported yet
-    monkeypatch.setattr(machine, "device_count", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        sweep(_cfg(), SweepRequest(workloads=wls, shard=True), device="cpu")
-    monkeypatch.undo()
+    # shard=True splits over the devices it is given
+    # (tests/test_torch_shard.py holds it to the reference); one that
+    # does not exist raises before any cycle runs
+    gone = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(ValueError, match="does not exist"):
+        sweep(_cfg(), SweepRequest(workloads=wls, shard=True), device="cpu",
+              devices=["cpu", gone])
     real_pack = batch.pack_workloads
 
     def corrupting_pack(*a, **kw):
