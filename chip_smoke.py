@@ -21,10 +21,10 @@ Phases (any failure raises and the script exits non-zero):
    legs run through ``repro_torch.core.sweep.sweep(..., device="cuda")``
    and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
    for bit, the packing schedule and the engine telemetry field for
-   field): the packed Fig. 17 grid (9 lanes, 4 waves of 8x8
-   super-lanes), the 256-node pointer chase (8 lanes at 8x8) on the
+   field): the 256-node pointer chase (8 lanes at 8x8) on the
    fast-forward and on the plain engine, and a packed leg with a
-   per-lane deadline; each prints its wall, engine ticks, lane-cycles/s,
+   per-lane deadline (:data:`SWEEP_LEGS`: the packed Fig. 17 grid of
+   ``sweeps.json`` was cut for time); each prints its wall, engine ticks, lane-cycles/s,
    dead-step fraction, waves, packing efficiency and peak memory.  After
    the ``[sweep]`` legs, the ``[service]`` phase drives the resident
    sweep service (``repro_torch.serve.SweepService``) on the card: the
@@ -140,7 +140,27 @@ Phases (any failure raises and the script exits non-zero):
    (within 1e-6 of the sum of the terms' magnitudes) and each shard's
    error to ``compress_tree``'s bit for bit, with the max errors, wall
    ms and bytes moved;
-11. time each kernel and its plain version with CUDA events over
+11. model parallelism (``[mesh]``), launch counts from 0: four ranks
+   as threads of this process on the card (torch's ``threaded`` process
+   group, :func:`thread_ranks`) over a (2, 2) ``("data", "model")``
+   ``DeviceMesh``; Phi-3.5-MoE at :data:`SERVE_CFG`'s width and depth,
+   its parameters from the ``[serve]`` phase's seeded generator, serves
+   the 6 requests at 4 slots (:data:`MESH_TRAFFIC`) through
+   ``serve_batch(mesh=)`` after the same serve unsharded; every rank
+   must launch ``group_matmul`` on its 8 local experts (and the launches
+   sum to the ranks' expert products), rank 0's layer-0 products of the
+   first prefill and decode step must agree with the plain version, the
+   first wave's prefill logits must be within 2e-2 of max |plain| of an
+   unsharded prefill that replays the mesh run's routing, and the served
+   tokens must equal the unsharded ones up to the first whose unsharded
+   top-2 margin is below the logit error measured so far; wall, peak
+   memory and launches are printed.  Then the reduced Phi-3.5-MoE and
+   Minitron-4B in f32 over (2, 2): logits within 1e-5 of the unsharded
+   forward, two ``train(mesh=)`` steps within 1e-5 relative of the
+   unsharded run (Phi's also of ``train_reduced.json``), and Phi's
+   checkpoint written under (2, 2) restored onto (1, 4) and (4, 1) bit
+   for bit, training resumed on each to the clean run's loss;
+12. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
    the training shapes, whose plain version takes tens of ms), at the
@@ -149,7 +169,7 @@ Phases (any failure raises and the script exits non-zero):
    dx shapes; compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-12. print the kernels line (a row per leg with the legs' launches,
+13. print the kernels line (a row per leg with the legs' launches,
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
@@ -159,7 +179,9 @@ Phases (any failure raises and the script exits non-zero):
    ``group_matmul_deepseek_serve`` row as the Phi one at DeepSeek's
    shapes with its serve's launches, and ``group_matmul_deepseek_train``
    / ``group_matmul_deepseek_train_dx`` rows as the Phi training ones at
-   DeepSeek's training shapes, with their launches a step), the card line
+   DeepSeek's training shapes, with their launches a step, and a
+   ``group_matmul_mesh_serve`` row at rank 0's local shapes of the
+   ``[mesh]`` serve with the launches of its four ranks), the card line
    and, last, the ok line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
@@ -170,6 +192,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -192,21 +215,26 @@ from repro_torch.bench.profile_engine import (grid_a_engine,  # noqa: E402
 from repro_torch.bench.profile_train import FAMILY_LEGS  # noqa: E402
 from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
+from repro_torch.checkpoint.store import restore_checkpoint  # noqa: E402
 from repro_torch.core import machine  # noqa: E402
 from repro_torch.core.sweep import SweepRequest, sweep  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.distributed import context as dctx  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
 from repro_torch.kernels.group_matmul import tile_by_expert  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
+from repro_torch.launch.mesh import device_mesh  # noqa: E402
 from repro_torch.launch.train_100m import tokens_per_s  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.serve.steps import encode_step, make_prefill_step  # noqa: E402
 from repro_torch.sparse import ops as sparse_ops  # noqa: E402
 from repro_torch.sparse.formats import BCSR, random_csr  # noqa: E402
-from repro_torch.train.optimizer import adamw_init, tree_leaves  # noqa: E402
+from repro_torch.train.optimizer import (AdamWState, adamw_init,  # noqa: E402
+                                         tree_leaves)
 from repro_torch.train.step import make_train_step, synth_batch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
@@ -238,6 +266,12 @@ TRAIN_RECORD_STEP = 1
 #: seeded tokens
 ENCODE_FRAMES = (2, 512)
 VISION_TOKENS = 16
+#: the ``[sweep]`` legs of ``golden.SWEEPS`` run here: the packed Fig. 17
+#: grid (116-189 s, the longest leg) was cut when the ``[mesh]`` phase
+#: took the script past 600 s; packing stays on the card in the packed
+#: deadline leg, and ``tests/test_torch_packing.py`` holds packed sweeps
+#: to the reference's on the CPU
+SWEEP_LEGS = ("chain", "deadline")
 #: the bf16 tolerance of a recorded expert product against its plain
 #: version: elementwise (rtol = atol) and, since a backward's dx is many
 #: orders of magnitude below 1, also max |err| over max |plain|
@@ -257,6 +291,56 @@ KERNELS = {
                          replaces="src/repro/kernels/group_matmul/"
                                   "kernel.py:42"),
 }
+
+
+def thread_ranks(fn, world_size: int = 4, timeout: float = 1500.0) -> list:
+    """``fn(rank)`` on ``world_size`` ranks, each a thread of this process
+    in torch's ``threaded`` process group, whose collectives are copies
+    between the threads' tensors: every rank may use the one card.
+    Returns each rank's result; a rank's error is raised here (the other
+    ranks are woken and stopped first).  The group comes from torch's own
+    test harness (``torch.testing._internal``), which only this script
+    and the tests import; the package never does."""
+    import threading
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+    _install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    store = dist.HashStore()
+    out, errs = [None] * world_size, [None] * world_size
+    card = torch.cuda.current_device() if torch.cuda.is_available() else None
+
+    def work(rank):
+        try:
+            if card is not None:
+                torch.cuda.set_device(card)
+            dist.init_process_group("threaded", rank=rank,
+                                    world_size=world_size, store=store)
+            out[rank] = fn(rank)
+        except BaseException as e:  # noqa: BLE001 — raised by the caller
+            errs[rank] = e
+            ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=work, args=(r,), daemon=True)
+               for r in range(world_size)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError(f"ranks still running after {timeout} s")
+    finally:
+        ProcessLocalGroup.reset()
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    err = next((e for e in errs if e is not None
+                and not isinstance(e, SystemExit)), None) or \
+        next((e for e in errs if e is not None), None)
+    if err is not None:
+        raise err
+    return out
 
 
 def card_line() -> str:
@@ -396,7 +480,7 @@ def run_sweeps() -> dict:
     equal the same golden lanes and which compresses nothing."""
     want = golden.load_sweep_golden()
     stats = {}
-    for name in golden.SWEEPS:
+    for name in SWEEP_LEGS:
         cfg, kw, keys = golden.port_sweep_leg(name)
         engines = [("ff", cfg)]
         if name == "chain":
@@ -1213,6 +1297,417 @@ def run_dispatch() -> dict:
     return rows
 
 
+# --- [mesh]: model parallelism over four ranks run as threads on the card ---
+#: the ``[mesh]`` phase's traffic: ``SERVE_TRAFFIC`` at 4 slots, so that
+#: the batch splits over ``data``
+MESH_TRAFFIC = dict(SERVE_TRAFFIC, batch_slots=4)
+#: the (data, model) meshes: serving and training run on the first, the
+#: checkpoint it writes is restored onto the others
+MESH_SHAPE = (2, 2)
+RESHARD_SHAPES = ((1, 4), (4, 1))
+#: the reduced legs' f32 tolerances: logits (absolute) and loss, aux loss
+#: and gradient norm (relative), the CPU tests' (tests/test_torch_mesh.py)
+MESH_LOGIT_ATOL = 1e-5
+MESH_METRIC_RTOL = 1e-5
+MESH_DENSE_ARCH = "minitron_4b"
+#: the reduced serve legs: five requests through four slots (one wave,
+#: then a refill replayed through decode), tokens equal to unsharded
+MESH_REDUCED_SERVE = dict(max_new_tokens=3, batch_slots=4, cache_len=64)
+MESH_REDUCED_REQUESTS = 5
+
+
+class RankExpertCalls:
+    """An :class:`ExpertCalls` per rank for ranks run as threads (they
+    share ``moe``'s module): each rank's ``grouped_expert_matmul`` calls
+    are counted and recorded apart, with the number of experts of each
+    call's operands (its own, under ``local_map``)."""
+
+    def __init__(self, keep, world: int):
+        self.ranks = [ExpertCalls(keep) for _ in range(world)]
+        self.experts = [set() for _ in range(world)]
+        self.inner = moe.grouped_expert_matmul
+
+    def __call__(self, xe, w, **kw):
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        self.experts[rank].add(int(xe.shape[0]))
+        return self.ranks[rank](xe, w, **kw)
+
+
+class LastLogits:
+    """Wraps ``lm.forward`` to keep, per call, the last position's logits
+    (gathered whole on a mesh: every rank calls it, rank 0 keeps them) as
+    f32 on the host."""
+
+    def __init__(self):
+        self.inner, self.logits = lm.forward, []
+
+    def __call__(self, *args, **kw):
+        import torch.distributed as dist
+        out = self.inner(*args, **kw)
+        last = dctx.whole(out[0][:, -1, :])
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.logits.append(last.float().cpu())
+        return out
+
+
+class Routes:
+    """Wraps ``moe._choose`` to record each call's message destinations
+    (rank 0's on a mesh: every rank routes the whole batch alike), or,
+    given recorded ones, to serve them in order in place of its own (the
+    gates then the router's probabilities at those experts, as a stolen
+    message's are) and count the messages that moved."""
+
+    def __init__(self, replay=None):
+        self.inner, self.dests, self.replay = moe._choose, [], replay
+        self.moved = 0
+
+    def __call__(self, xt, router, cfg, cap):
+        import torch.distributed as dist
+        probs, dest, gate = self.inner(xt, router, cfg, cap)
+        if self.replay is not None:
+            want = self.replay.pop(0).to(dest.device)
+            self.moved += int((want != dest).sum())
+            gate = torch.gather(probs, -1, want.reshape(gate.shape).long())
+            return probs, want, gate / gate.sum(-1, keepdim=True).clamp(
+                min=1e-9)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.dests.append(dest.cpu())
+        return probs, dest, gate
+
+
+class ForcedTokens(LastLogits):
+    """Wraps ``lm.forward`` for an unsharded serve that follows the mesh
+    serve's tokens: each call keeps its own last logits, as
+    :class:`LastLogits` does, and returns logits whose last position's
+    argmax is the mesh's choice at that call (the argmax of the mesh's
+    recorded logits), so the slot loop feeds every slot the mesh's
+    tokens."""
+
+    def __init__(self, mesh_logits: list):
+        super().__init__()
+        self.choices = [torch.argmax(g, -1) for g in mesh_logits]
+
+    def __call__(self, *args, **kw):
+        logits, caches, aux = super().__call__(*args, **kw)
+        pick = self.choices[len(self.logits) - 1].to(logits.device)
+        forced = torch.zeros_like(logits)
+        forced[:, -1, :].scatter_(-1, pick[:, None], 1)
+        return forced, caches, aux
+
+
+class BlockOutputs:
+    """Wraps ``lm._tfm_block`` to keep the residual stream after each of
+    the first ``n`` blocks a rank runs (the first forward's layers),
+    gathered whole and as f32 on the host (rank 0's on a mesh)."""
+
+    def __init__(self, n: int):
+        self.inner, self.n, self.outs, self.count = lm._tfm_block, n, [], {}
+
+    def __call__(self, *args, **kw):
+        import torch.distributed as dist
+        out = self.inner(*args, **kw)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        k = self.count.get(rank, 0)
+        self.count[rank] = k + 1
+        if k < self.n:
+            x = dctx.whole(out[0]).float().cpu()
+            if rank == 0:
+                self.outs.append(x)
+        return out
+
+
+def rel_errs(got: list, want: list) -> list:
+    """max |got - want| / max |want| of each pair."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} tensors against {len(want)}")
+    return [(g - w).abs().max().item() / w.abs().max().item()
+            for g, w in zip(got, want)]
+
+
+def compare_served(want_logits: list, got_logits: list) -> dict:
+    """Holds the mesh serve's greedy choices to the unsharded serve's, one
+    ``lm.forward`` call after another (the slot loop does not depend on
+    the tokens' values, so both make the same calls): every choice must
+    be equal up to the first whose unsharded top-2 margin is below the
+    largest logit error measured so far.  Returns the errors and the
+    count of choices compared."""
+    if len(want_logits) != len(got_logits):
+        raise AssertionError(f"{len(got_logits)} forward calls on the mesh, "
+                             f"{len(want_logits)} unsharded")
+    err, compared, stop = 0.0, 0, None
+    for k, (w, g) in enumerate(zip(want_logits, got_logits)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"forward {k}: logits are not finite")
+        err = max(err, (g - w).abs().max().item())
+        top = torch.topk(w, 2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        same = torch.argmax(w, -1) == torch.argmax(g, -1)
+        if not same.all():
+            s = int(torch.nonzero(~same)[0, 0])
+            if margin[s].item() >= err:
+                raise AssertionError(
+                    f"forward {k} slot {s}: the mesh chose another token "
+                    f"by a margin of {margin[s].item()} >= logit error {err}")
+            stop = (k, s, margin[s].item())
+            compared += int(same[:s].sum())
+            break
+        compared += same.numel()
+    return dict(logit_max_abs_err=err, choices_compared=compared,
+                stopped_at=stop)
+
+
+def run_mesh_serve(cfg=SERVE_CFG, device="cuda") -> tuple[dict, dict]:
+    """Phi-3.5-MoE at full width (:data:`SERVE_CFG`) served over a (2, 2)
+    mesh of four thread-ranks on the card through ``serve_batch(mesh=)``,
+    launch counts from 0, against the same serve on the card unsharded
+    (before the counts are reset).  The routing is discrete and the two
+    runs sum in other orders, so a bf16 step in a router's input can send
+    a message elsewhere (and load stealing then others).  So the serve is
+    run unsharded once more, fed the mesh's tokens and replaying the mesh's
+    routing in every forward: each forward's last logits (the decode
+    steps' read the sharded caches) are held within :data:`BF16_TOL` of
+    max |plain|, and the first forward's residual stream is compared block
+    by block.  The served tokens are held to the free unsharded serve by
+    :func:`compare_served`.  Returns the stats and rank 0's recorded
+    expert products."""
+    reqs = golden.serve_requests()
+    params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    want, free = LastLogits(), Routes()
+    lm.forward, moe._choose = want, free
+    try:
+        ref = serve.serve_batch(cfg, reqs, reduced=False, device=device,
+                                params=params, **MESH_TRAFFIC)
+    finally:
+        lm.forward, moe._choose = want.inner, free.inner
+    per_fwd = 3 * cfg.n_layers
+    rec = RankExpertCalls([0, 1, 2, per_fwd, per_fwd + 1, per_fwd + 2], 4)
+    got, routes = LastLogits(), Routes()
+    mesh_blocks = BlockOutputs(cfg.n_layers)
+    moe.grouped_expert_matmul, lm.forward, moe._choose = rec, got, routes
+    lm._tfm_block = mesh_blocks
+
+    def rank(r):
+        mesh = device_mesh(*MESH_SHAPE, device)
+        return serve.serve_batch(cfg, reqs, reduced=False, mesh=mesh,
+                                 params=params, **MESH_TRAFFIC)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for meta in KERNELS.values():
+        meta["wrapper"].launches = 0
+    t0 = time.time()
+    try:
+        runs = thread_ranks(rank, 4)
+    finally:
+        moe.grouped_expert_matmul, lm.forward, moe._choose = \
+            rec.inner, got.inner, routes.inner
+        lm._tfm_block = mesh_blocks.inner
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = group_matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    for r, res in enumerate(runs):
+        check_served(res, cfg)
+        if [o.tolist() for o in res.outputs] != \
+                [o.tolist() for o in runs[0].outputs]:
+            raise AssertionError(f"rank {r} served other tokens than rank 0")
+    calls = [x.n for x in rec.ranks]
+    if rec.experts != [{cfg.moe.n_experts // MESH_SHAPE[1]}] * 4 or \
+            min(calls) <= 0 or launches != sum(calls):
+        raise AssertionError(f"expert products by rank {calls} on "
+                             f"{rec.experts} local experts; {launches} "
+                             "group_matmul launches")
+    # the whole serve again unsharded, fed the mesh's tokens and replaying
+    # the mesh's routing in every forward: each forward's last logits
+    # within BF16_TOL of its max |plain| (the sharded caches included)
+    replay = Routes(replay=list(routes.dests))
+    forced, ref_blocks = ForcedTokens(got.logits), BlockOutputs(cfg.n_layers)
+    lm.forward, moe._choose, lm._tfm_block = forced, replay, ref_blocks
+    try:
+        followed = serve.serve_batch(cfg, reqs, reduced=False, device=device,
+                                     params=params, **MESH_TRAFFIC)
+    finally:
+        lm.forward, moe._choose, lm._tfm_block = \
+            forced.inner, replay.inner, ref_blocks.inner
+    if replay.replay or [o.tolist() for o in followed.outputs] != \
+            [o.tolist() for o in runs[0].outputs]:
+        raise AssertionError(f"{len(replay.replay)} routes left; the "
+                             "unsharded serve did not follow the mesh's "
+                             "tokens")
+    if not all(torch.isfinite(g).all() for g in got.logits):
+        raise AssertionError("the mesh's logits are not finite")
+    fwd_rel = rel_errs(got.logits, forced.logits)
+    layer_rel = rel_errs(mesh_blocks.outs, ref_blocks.outs)
+    bad = [(k, e) for k, e in enumerate(fwd_rel) if not e <= BF16_TOL]
+    if bad:
+        raise AssertionError(f"forwards (index, max |err| / max |plain|) "
+                             f"past {BF16_TOL} on the mesh's routing and "
+                             f"tokens: {bad}")
+    first = (got.logits[0] - forced.logits[0]).abs().max().item()
+    scale = forced.logits[0].abs().max().item()
+    prefill_moved = sum(int((a != b).sum()) for a, b in zip(
+        free.dests[:cfg.n_layers], routes.dests[:cfg.n_layers]))
+    served = compare_served(want.logits, got.logits)
+    errs, rel = serve_expert_checks(rec.ranks[0], per_fwd,
+                                    "mesh serving path, rank 0")
+    stats = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, mesh=list(MESH_SHAPE),
+        ranks="4 threads on one card", requests=len(reqs),
+        tokens=runs[0].tokens_generated, wall_s=wall,
+        prefill_s=runs[0].prefill_s, decode_s=runs[0].decode_s,
+        decode_tok_s=runs[0].decode_tok_s,
+        unsharded_decode_tok_s=ref.decode_tok_s,
+        group_matmul_launches=launches, launches_by_rank=calls,
+        local_experts=sorted(rec.experts[0]), peak_mem_bytes=peak,
+        max_abs_err=errs, rel_err=rel, prefill_max_abs_err=first,
+        prefill_max_abs_plain=scale, prefill_rel_err=first / scale,
+        forward_rel_errs=fwd_rel, max_forward_rel_err=max(fwd_rel),
+        prefill_layer_rel_errs=layer_rel,
+        replayed_messages_moved=replay.moved,
+        free_prefill_messages_moved=prefill_moved,
+        free_prefill_max_abs_err=(got.logits[0] - want.logits[0]).abs()
+        .max().item(), **served,
+        outputs=[o.tolist() for o in runs[0].outputs],
+        unsharded_outputs=[o.tolist() for o in ref.outputs])
+    print(f"[mesh] serve {json.dumps(stats)}", flush=True)
+    del params
+    return stats, rec.ranks[0].calls
+
+
+def _reduced_params(arch: str, device):
+    cfg = configs.get_arch(arch).reduced()
+    return cfg, params_from_numpy(golden.serve_params_numpy(cfg, 0), cfg,
+                                  device)
+
+
+def _train_metrics(arch: str, device, **kw) -> dict:
+    spec = golden.TRAIN_SPEC
+    res = trainer.train(arch, batch=spec["batch"], seq=spec["seq"],
+                        lr=spec["lr"], params=_reduced_params(arch, device)[1],
+                        device=device, log_every=0, **kw)
+    return dict(loss=res.losses, aux_loss=res.aux_losses,
+                grad_norm=res.grad_norms)
+
+
+def _close(got: list, want: list, what: str) -> float:
+    """The largest |got - want| / |want| (|got - want| where want is 0, as
+    a dense model's aux loss); raises above :data:`MESH_METRIC_RTOL`."""
+    rel = max(abs(g - w) / (abs(w) or 1.0) for g, w in zip(got, want))
+    if len(got) != len(want) or not rel <= MESH_METRIC_RTOL:
+        raise AssertionError(f"{what}: {got} against {want}")
+    return rel
+
+
+def run_mesh_reduced(device="cuda") -> dict:
+    """The reduced Phi-3.5-MoE and Minitron-4B in f32 over (2, 2)
+    thread-ranks on the card: the forward's logits within
+    :data:`MESH_LOGIT_ATOL` of the unsharded forward; ``serve_batch(mesh=)``
+    giving the unsharded serve's tokens; two ``train(mesh=)``
+    steps within :data:`MESH_METRIC_RTOL` of the unsharded run (and Phi's
+    of ``train_reduced.json``); Phi's checkpoint of step 1 written under
+    (2, 2), restored onto (1, 4) and (4, 1) bit for bit, and training
+    resumed on each to the clean run's second loss."""
+    spec = golden.TRAIN_SPEC
+    archs = {"moe": configs.ALIASES[spec["arch"]], "dense": MESH_DENSE_ARCH}
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, 512, (spec["batch"],
+                                                 spec["seq"])),
+                           dtype=torch.int32, device=device)
+    reqs = golden.serve_requests()[:MESH_REDUCED_REQUESTS]
+    want = {}
+    for key, arch in archs.items():
+        cfg, params = _reduced_params(arch, device)
+        with torch.no_grad():
+            logits = lm.forward(params, cfg, {"tokens": toks})[0]
+        served = serve.serve_batch(arch, reqs, device=device, params=params,
+                                   **MESH_REDUCED_SERVE)
+        want[key] = dict(logits=logits, served=[o.tolist() for o in
+                                                served.outputs],
+                         train=_train_metrics(arch, device, steps=2))
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_")
+
+    def rank(r):
+        mesh = device_mesh(*MESH_SHAPE, device)
+        out = {}
+        for key, arch in archs.items():
+            cfg, params = _reduced_params(arch, device)
+            placed = shd.place_params(params, mesh)
+            t = shd.place(toks, shd.batch_sharding(mesh, toks.shape))
+            with torch.no_grad(), dctx.use_mesh(mesh):
+                logits = dctx.whole(lm.forward(placed, cfg,
+                                               {"tokens": t})[0])
+            served = serve.serve_batch(arch, reqs, mesh=mesh, params=params,
+                                       **MESH_REDUCED_SERVE)
+            out[key] = dict(logits=logits, served=[o.tolist() for o in
+                                                   served.outputs],
+                            train=_train_metrics(arch, device, steps=2,
+                                                 mesh=mesh))
+        arch = archs["moe"]
+        _train_metrics(arch, device, steps=1, mesh=mesh, ckpt_dir=ckpt,
+                       save_every=1)
+        _, params = _reduced_params(arch, device)
+        like = (params.tree(), adamw_init(params.tree()))
+        saved, step, _ = restore_checkpoint(ckpt, like, device=device)
+        for shape in RESHARD_SHAPES:
+            other = device_mesh(*shape, device)
+            ps = shd.param_shardings(params, other)
+            placed, _, _ = restore_checkpoint(
+                ckpt, like, device=device,
+                shardings=(ps, AdamWState(ps, ps, ps, None)))
+            pairs = list(zip(tree_leaves(placed), tree_leaves(saved)))
+            out[shape] = dict(
+                step=step,
+                equal=all(torch.equal(dctx.whole(a), b) for a, b in pairs),
+                resumed=_train_metrics(arch, device, steps=2, mesh=other,
+                                       ckpt_dir=ckpt))
+        return out
+
+    t0 = time.time()
+    try:
+        runs = thread_ranks(rank, 4)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.time() - t0
+    stats = dict(mesh=list(MESH_SHAPE), ranks="4 threads on one card",
+                 wall_s=wall, logit_max_abs_err={}, served_tokens_equal={},
+                 train_max_rel_err={})
+    for key in archs:
+        err = max((r[key]["logits"] - want[key]["logits"]).abs().max().item()
+                  for r in runs)
+        if not err <= MESH_LOGIT_ATOL:
+            raise AssertionError(f"{key} logits over the mesh differ by "
+                                 f"{err}")
+        stats["logit_max_abs_err"][key] = err
+        if any(r[key]["served"] != want[key]["served"] for r in runs):
+            raise AssertionError(f"{key} served over the mesh "
+                                 f"{runs[0][key]['served']}, unsharded "
+                                 f"{want[key]['served']}")
+        stats["served_tokens_equal"][key] = sum(map(len,
+                                                    want[key]["served"]))
+        stats["train_max_rel_err"][key] = max(
+            _close(r[key]["train"][k], want[key]["train"][k],
+                   f"{key} {k} over the mesh")
+            for r in runs for k in ("loss", "aux_loss", "grad_norm"))
+    rec = golden.load_train_golden()
+    got = runs[0]["moe"]["train"]
+    stats["golden_max_rel_err"] = golden.check_train(
+        got["loss"], got["aux_loss"], got["grad_norm"],
+        {k: rec[k][:2] for k in ("loss", "aux_loss", "grad_norm")})
+    clean = want["moe"]["train"]["loss"]
+    for shape in RESHARD_SHAPES:
+        for r in runs:
+            got = r[shape]
+            if got["step"] != 1 or not got["equal"]:
+                raise AssertionError(f"restore onto {shape}: step "
+                                     f"{got['step']}, equal {got['equal']}")
+            stats[f"resumed_{shape[0]}x{shape[1]}_rel_err"] = _close(
+                got["resumed"]["loss"], clean[1:],
+                f"training resumed on {shape}")
+    print(f"[mesh] reduced {json.dumps(stats)}", flush=True)
+    return stats
+
+
 def training_shape_times(stats: dict, calls: dict,
                          name: str = "group_matmul_train") -> list:
     """The ``<name>`` and ``<name>_dx`` rows: the kernel on a training
@@ -1431,6 +1926,18 @@ def main() -> int:
     dispatch_rows = run_dispatch()
     print(f"[dispatch] phase {time.time() - t_am:.1f} s", flush=True)
 
+    # --- model parallelism over thread-ranks, launch counts from zero -------
+    t_mesh = time.time()
+    mesh_served, calls = run_mesh_serve()
+    torch.cuda.empty_cache()
+    mesh_reduced = run_mesh_reduced()
+    mesh_row = serving_shape_times(mesh_served, calls,
+                                   name="group_matmul_mesh_serve")
+    print(f"[kernel] {json.dumps(mesh_row)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[mesh] phase {time.time() - t_mesh:.1f} s", flush=True)
+
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -1438,6 +1945,7 @@ def main() -> int:
     rows += train_rows
     rows.append(deepseek_row)
     rows += deepseek_train_rows
+    rows.append(mesh_row)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"simulator": sim, "serve": {
         k: served[k] for k in ("serves", "prefill_s", "decode_s",
@@ -1460,7 +1968,13 @@ def main() -> int:
             "group_matmul_launches")} for k, v in fam_trained.items()},
         "train_families_reduced": fam_train_reduced,
         "static": static, "sparse": sparse_row, "shard": shard_rows,
-        "dispatch": dispatch_rows}))
+        "dispatch": dispatch_rows, "mesh": {
+            "serve": {k: mesh_served[k] for k in (
+                "wall_s", "prefill_s", "decode_s", "decode_tok_s",
+                "group_matmul_launches", "launches_by_rank",
+                "peak_mem_bytes", "prefill_rel_err", "max_forward_rel_err",
+                "choices_compared")},
+            "reduced": mesh_reduced}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,17 @@ Layout (one directory per step, atomic rename commit):
 * **Async save**: :meth:`CheckpointManager.save` with ``blocking=False``
   copies every leaf to host memory before it returns (the only
   synchronous part) and writes on a daemon thread.
-* **Restore onto a device**: :func:`restore_checkpoint` puts every leaf on
-  ``device=``.  The reference's ``shardings=`` (an elastic reshard onto a
-  mesh) waits for the port's ``distributed/`` slice (ROADMAP.md, Queue 1).
+* **Sharded trees**: a ``DTensor`` leaf is gathered whole before it is
+  written, so the files hold the reference's full arrays whatever the
+  mesh.  Every rank takes part in the gathers; the mesh's first rank
+  writes, and the others wait for its commit (a barrier of the default
+  process group in :meth:`CheckpointManager.wait`).
+* **Restore onto a device or a mesh (the elastic reshard)**:
+  :func:`restore_checkpoint` puts every leaf on ``device=``, or, with
+  ``shardings=`` (a tree of
+  :class:`repro_torch.distributed.sharding.NamedSharding`, or one for
+  every leaf; None for a plain leaf), distributes each leaf onto any
+  mesh and placements, whatever mesh saved it.
 * **Retention**: the ``keep`` newest checkpoints are kept, older ones
   pruned after a successful commit.
 * **Pipeline state**: JSON-able ``extra`` rides in ``tree.json``.
@@ -40,6 +48,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import is_sharded
+from repro_torch.distributed.sharding import NamedSharding, place
+
 _MARKER = "_COMPLETE"
 
 _UINT_OF_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
@@ -47,8 +58,11 @@ _UINT_OF_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 def _to_host(x) -> tuple[np.ndarray, str | None]:
     """One leaf -> (a host numpy array that owns its memory, ml_dtype
-    name or None); a raw-bits leaf comes back as unsigned ints."""
+    name or None); a raw-bits leaf comes back as unsigned ints, and a
+    ``DTensor`` whole (a collective: every rank calls it)."""
     if isinstance(x, torch.Tensor):
+        if is_sharded(x):
+            x = x.full_tensor()
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -160,11 +174,26 @@ def _write(root: str, step: int, host: list, treedef: _TreeDef,
     return final
 
 
+def _writes(leaves) -> bool:
+    """Whether this rank writes a tree with these leaves: always for a
+    plain tree, only the first rank of the mesh for a sharded one."""
+    mesh = next((x.device_mesh for x in leaves if is_sharded(x)), None)
+    return mesh is None or mesh.get_rank() == int(mesh.mesh.min())
+
+
 def save_checkpoint(root: str, step: int, tree, *, extra: dict | None = None
                     ) -> str:
-    """Synchronous step-atomic save.  Returns the committed directory."""
+    """Synchronous step-atomic save.  Returns the committed directory.
+    A sharded tree is gathered on every rank, written by the mesh's first
+    and committed for all at a barrier."""
     leaves, treedef = _flatten(tree)
-    return _write(root, step, [_to_host(x) for x in leaves], treedef, extra)
+    host = [_to_host(x) for x in leaves]
+    final = os.path.join(root, f"step_{step:08d}")
+    if _writes(leaves):
+        final = _write(root, step, host, treedef, extra)
+    if any(is_sharded(x) for x in leaves):
+        torch.distributed.barrier()
+    return final
 
 
 def list_steps(root: str) -> list[int]:
@@ -186,6 +215,29 @@ def latest_step(root: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def _per_leaf(tree_like, shardings) -> list:
+    """The sharding of each leaf of ``tree_like`` in flatten order: a
+    :class:`NamedSharding` or None where ``shardings`` has one applies to
+    the whole subtree below it."""
+    out: list = []
+
+    def walk(t, s):
+        one = s is None or isinstance(s, NamedSharding)
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], s if one else s[k])
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, s if one else s[i])
+        else:
+            out.append(s)
+
+    walk(tree_like, shardings)
+    return out
+
+
 def _load_leaf(x: np.ndarray, ml_name: str | None, device) -> torch.Tensor:
     """A stored array -> a tensor on ``device`` that owns its memory."""
     if ml_name is None:
@@ -196,14 +248,17 @@ def _load_leaf(x: np.ndarray, ml_name: str | None, device) -> torch.Tensor:
 
 
 def restore_checkpoint(root: str, tree_like, *, step: int | None = None,
-                       device="cuda") -> tuple[Any, int, dict]:
+                       device="cuda", shardings=None) -> tuple[Any, int, dict]:
     """Restore into the structure of ``tree_like``, every leaf a tensor on
-    ``device``.
+    ``device`` or distributed by ``shardings``.
 
     Args:
       tree_like: a tree with the target structure (shapes are checked).
       step: the step to restore (default: the latest complete one).
-      device: where the restored leaves live.
+      device: where the restored plain leaves live.
+      shardings: optional tree of (or single) :class:`NamedSharding`;
+        each leaf is placed with its own (an elastic reshard onto any
+        mesh), a None leaf or subtree stays a plain tensor on ``device``.
     Returns:
       (tree, step, extra)
     """
@@ -222,13 +277,18 @@ def restore_checkpoint(root: str, tree_like, *, step: int | None = None,
             f"checkpoint has {meta['n_leaves']} leaves, target structure "
             f"has {len(leaves_like)} — architecture mismatch")
     out = []
-    for i, like in enumerate(leaves_like):
+    for i, (like, sh) in enumerate(zip(leaves_like,
+                                       _per_leaf(tree_like, shardings))):
         x = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
         want = _shape(like)
         if tuple(x.shape) != want:
             raise ValueError(f"leaf {i}: checkpoint shape {x.shape} != "
                              f"target {want}")
-        out.append(_load_leaf(x, meta["leaves"][i].get("ml_dtype"), device))
+        ml = meta["leaves"][i].get("ml_dtype")
+        if sh is None:
+            out.append(_load_leaf(x, ml, device))
+        else:
+            out.append(place(_load_leaf(x, ml, sh.mesh.device_type), sh))
     return treedef.unflatten(out), step, meta.get("extra", {})
 
 
@@ -240,13 +300,17 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sharded = False      # saved a sharded tree: ranks barrier
         os.makedirs(root, exist_ok=True)
 
     def wait(self):
-        """Block until any in-flight async save commits."""
+        """Block until any in-flight async save commits (on every rank,
+        once a sharded tree was saved)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -259,6 +323,11 @@ class CheckpointManager:
         # CPU tensor's .numpy() is a view the next step would overwrite
         leaves, treedef = _flatten(tree)
         host = [_to_host(x) for x in leaves]
+        self._sharded = any(is_sharded(x) for x in leaves)
+        if not _writes(leaves):
+            if blocking:
+                self.wait()
+            return
 
         def work():
             try:
@@ -269,16 +338,15 @@ class CheckpointManager:
 
         if blocking:
             work()
-            if self._error is not None:
-                err, self._error = self._error, None
-                raise err
+            self.wait()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def restore(self, tree_like, *, step: int | None = None, device="cuda"):
+    def restore(self, tree_like, *, step: int | None = None, device="cuda",
+                shardings=None):
         return restore_checkpoint(self.root, tree_like, step=step,
-                                  device=device)
+                                  device=device, shardings=shardings)
 
     def latest(self) -> int | None:
         return latest_step(self.root)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -23,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()
 _FNS: dict = {}
 #: ptxas report (registers, shared memory, spills) of each built source
 BUILD_LOG: dict = {}
@@ -87,14 +89,17 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(_lib_path(name))
-        _LIBS[name] = lib
+    """The loaded library of ``csrc/<name>.cu``, built on first use (once,
+    whatever number of threads asks: ranks run as threads launch
+    together)."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(_lib_path(name))
+            _LIBS[name] = lib
     return lib
 
 

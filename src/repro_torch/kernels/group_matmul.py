@@ -18,6 +18,8 @@ have no counterpart here.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
@@ -101,11 +103,13 @@ def group_matmul(x: torch.Tensor, expert_of_tile: torch.Tensor,
                  t // tile_m, tile_m, d, f, n_exp,
                  torch.cuda.current_stream(x.device).cuda_stream)
         _build.check_launch(symbol, err)
-        group_matmul.launches += 1
+        with _COUNT_LOCK:      # ranks run as threads launch it at once
+            group_matmul.launches += 1
     return out
 
 
 group_matmul.launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def tile_by_expert(xe: torch.Tensor, tile_m: int | None = None):

@@ -15,6 +15,12 @@ No ``torch.distributed`` process group is made here (the reference has
 none either: one controller).  ``Mesh.shape`` is shaped like the
 reference's (an ordered mapping from axis name to size).
 
+Model parallelism (``repro_torch.distributed``) runs one rank per process
+(or per thread) instead, over a named
+``torch.distributed.device_mesh.DeviceMesh``: :func:`device_mesh` builds
+one over a process group the caller has initialised, and
+:func:`rank_device` names the device of the calling rank.
+
 Building a mesh is a function call, never an import side effect.
 """
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 __all__ = ["Mesh", "make_host_mesh", "make_production_mesh",
            "visible_devices", "check_devices", "all_to_all", "psum",
-           "map_shards"]
+           "map_shards", "device_mesh", "rank_device"]
 
 
 def visible_devices(kind="cuda") -> list:
@@ -140,6 +146,25 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     arr = np.empty((n,), dtype=object)
     arr[:] = devs[:n]
     return Mesh(arr.reshape(shape), axes)
+
+
+def device_mesh(data: int, model: int, device_type: str = "cuda"):
+    """A named ``DeviceMesh`` of ``(data, model)`` ranks in rank order,
+    over the default process group, which the caller has initialised with
+    ``data * model`` ranks (NCCL under ``torchrun``, ``gloo`` processes,
+    or ranks as threads)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device_type, torch.arange(data * model).reshape(
+        data, model), mesh_dim_names=("data", "model"))
+
+
+def rank_device(device_mesh) -> torch.device:
+    """The calling rank's device on ``device_mesh``: the current card of
+    a CUDA mesh (one card per rank, or one card shared by ranks run as
+    threads), else the mesh's device type."""
+    if device_mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device_mesh.device_type)
 
 
 def _group(mesh: Mesh, axis: str, xs) -> list:

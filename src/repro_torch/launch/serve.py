@@ -21,6 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import rank_device
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
@@ -45,14 +48,25 @@ def _sync(device) -> None:
 
 def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
                 max_new_tokens: int = 16, cache_len: int = 256,
-                batch_slots: int = 4, device="cuda", reduced: bool = True,
-                eos_id: int | None = None,
+                batch_slots: int = 4, device="cuda", mesh=None,
+                reduced: bool = True, eos_id: int | None = None,
                 params: lm.LM | None = None) -> ServeResult:
     """Generate ``max_new_tokens`` for every request (greedy).
 
-    Deviations from the reference, each for running on one card:
+    ``mesh``: a named ``DeviceMesh`` (``data``, ``model``) over ranks the
+    caller has started, each of which calls ``serve_batch`` alike and gets
+    the same result.  The parameters are placed by ``param_shardings``,
+    the caches by ``cache_specs`` and each token batch over the batch
+    axes: the placements the reference's dry run gives its prefill and
+    decode cells.  The reference's own ``serve_batch`` only installs the
+    mesh context, and its jitted steps keep the parameters where their
+    init put them; the port follows the dry run, so that each rank holds
+    its own slices only.  Without it everything runs on ``device``.
 
-    * ``device`` replaces ``mesh``: everything runs on that one device;
+    Deviations from the reference:
+
+    * ``device`` runs on one device where the reference builds a one-device
+      mesh; under ``mesh`` it is that rank's device;
     * ``arch`` may also be an :class:`ArchConfig` (e.g. a depth-cut
       full-width config), to which ``reduced`` applies as to a name;
     * ``params`` serves given parameters (an :class:`lm.LM` on
@@ -67,12 +81,23 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
     if reduced:
         cfg = cfg.reduced()
     assert not cfg.encoder_only, "encoder-only archs have no decode path"
+    if mesh is not None:
+        lm.check_mesh_family(cfg)
+        device = rank_device(mesh)
 
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = lm.init_params(cfg, gen)
+    if mesh is not None:
+        params = shd.place_params(params, mesh)
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     decode = make_decode_step(cfg)
+
+    def put(tokens):
+        """A host-built token batch onto the mesh (over the batch axes)."""
+        if mesh is None:
+            return tokens
+        return shd.place(tokens, shd.batch_sharding(mesh, tokens.shape))
 
     pending = list(range(len(requests)))
     outputs: list[list[int]] = [[] for _ in requests]
@@ -86,7 +111,11 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
 
     t_pref = t_dec = 0.0
     gen_count = 0
-    with torch.inference_mode():
+    # a DTensor under inference_mode re-derives its sharding through fake
+    # tensors on every call (decode steps 5x slower on the CPU): on a mesh
+    # the serve runs under no_grad instead
+    no_grad = torch.inference_mode() if mesh is None else torch.no_grad()
+    with no_grad, dctx.use_mesh(mesh):
         # initial fill: one shared prefill over the first wave, every
         # prompt right-aligned to the longest (left-padded with 0)
         wave = [pending.pop(0) for _ in range(min(batch_slots, len(pending)))]
@@ -98,9 +127,10 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
             slot_req[s] = rid
             slot_left[s] = max_new_tokens
         t0 = time.time()
-        last_logits, caches = prefill(params, torch.as_tensor(toks,
-                                                              device=device))
-        nxt = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
+        last_logits, caches = prefill(params, put(torch.as_tensor(
+            toks, device=device)))
+        nxt = dctx.whole(torch.argmax(last_logits, dim=-1).to(torch.int32))
+        nxt = nxt[:, None]
         _sync(device)
         t_pref += time.time() - t0
         slot_pos[:] = plen
@@ -132,7 +162,7 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
                                               dtype=torch.int32,
                                               device=device)
                             one[s, 0] = int(tok2)
-                            _, caches = decode(params, caches, one,
+                            _, caches = decode(params, caches, put(one),
                                                int(slot_pos[s]))
                             slot_pos[s] += 1
                         nxt = nxt.clone()
@@ -141,7 +171,9 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
                         slot_req[s] = -1
             if not any(r >= 0 for r in slot_req):
                 break
-            nxt, caches = decode(params, caches, nxt, int(slot_pos.max()))
+            nxt, caches = decode(params, caches, put(nxt),
+                                 int(slot_pos.max()))
+            nxt = dctx.whole(nxt)
             _sync(device)
             slot_pos += 1
             t_dec += time.time() - t0

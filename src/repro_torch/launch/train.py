@@ -11,8 +11,11 @@
 Failure injection for tests and demos: ``--fail-at-step N`` raises inside
 the host loop at step N exactly once, exercising the recovery path end to
 end.  Everything runs on one device (``--device``, the card unless the
-caller names another); the reference's meshes and its elastic reshard on
-restore wait for the port's ``distributed/`` slice (ROADMAP.md, Queue 1).
+caller names another), or, with ``mesh=``, over a named ``DeviceMesh``
+whose ranks the caller started: the parameters placed by
+``param_shardings``, the optimizer state placed like them, the batch over
+the batch axes, and a restore onto that mesh whatever mesh saved the
+checkpoint (the reference's elastic restart).
 
     python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b
     python -m repro_torch.launch.train --arch stablelm-3b --device cpu
@@ -31,9 +34,12 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import make_pipeline
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import rank_device
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
-from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.optimizer import AdamWState, adamw_init
 from repro_torch.train.step import make_train_step
 
 
@@ -53,38 +59,53 @@ class TrainLoopResult:
     step_s: list = dataclasses.field(default_factory=list)
 
 
-def _build(cfg, lr, microbatch, device, params):
+def _build(cfg, lr, microbatch, device, params, mesh):
     """(params, AdamW state, step): a copy of the given parameters on
     ``device`` (the caller's stay as they are), or ``lm.init_params`` from
-    a generator on ``device`` seeded with 0."""
+    a generator on ``device`` seeded with 0; on ``mesh``, placed there by
+    ``param_shardings`` (each rank keeps a copy of its own slices)."""
     if params is None:
         params = lm.init_params(
             cfg, torch.Generator(device=device).manual_seed(0))
-    else:
+    elif mesh is None:
         params = copy.deepcopy(params).to(device)
+    if mesh is not None:
+        params = shd.place_params(params, mesh)
     return params, adamw_init(params.tree()), make_train_step(
         cfg, lr=lr, microbatch=microbatch)
 
 
-def _restore(mgr, params, opt, device):
-    (tree, opt), step, extra = mgr.restore((params.tree(), opt),
-                                           device=device)
+def _restore(mgr, params, opt, device, mesh):
+    shardings = None
+    if mesh is not None:
+        ps = shd.param_shardings(params, mesh)
+        shardings = (ps, AdamWState(m=ps, v=ps, master=ps, count=None))
+    (tree, opt), step, extra = mgr.restore(
+        (params.tree(), opt), device=device, shardings=shardings)
     return lm.LM(tree), opt, step, extra
 
 
 def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, microbatch: int | None = None,
           ckpt_dir: str | None = None, save_every: int = 10,
-          data_path: str | None = None, device="cuda",
+          data_path: str | None = None, device="cuda", mesh=None,
           fail_at_step: int | None = None, step_timeout: float | None = None,
           max_restarts: int = 3, log_every: int = 5, reduced: bool = True,
           params: lm.LM | None = None) -> TrainLoopResult:
     """Supervised training with checkpoint/restart fault tolerance.
 
-    Deviations from the reference, each for running on one card:
+    ``mesh``: a named ``DeviceMesh`` (``data``, ``model``, and optionally
+    ``pod``) over ranks the caller has started, each of which calls
+    ``train`` alike.  As the reference's ``_build``, the parameters are
+    placed by ``param_shardings`` and the optimizer state like them; the
+    batch is split over the batch axes, a restore places every leaf on
+    this mesh (whatever mesh saved it), and the mesh's first rank writes
+    the checkpoints.  Without it everything runs on ``device``.
 
-    * ``device`` replaces ``mesh``, and a restore puts every leaf on it
-      (the reference's ``shardings=``);
+    Deviations from the reference:
+
+    * ``device`` runs on one device where the reference builds a one-device
+      mesh; under ``mesh`` it is that rank's device;
     * ``arch`` may also be an :class:`ArchConfig` (e.g. a depth-cut
       full-width config), to which ``reduced`` applies as to a name;
     * ``params`` starts from given parameters (an :class:`lm.LM`); by
@@ -98,15 +119,24 @@ def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
         cfg = configs.get_arch(configs.ALIASES.get(arch, arch))
     if reduced:
         cfg = cfg.reduced()
+    if mesh is not None:
+        lm.check_mesh_family(cfg)
+        device = rank_device(mesh)
     mgr = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
 
     given = params
-    params, opt, step_fn = _build(cfg, lr, microbatch, device, given)
+    params, opt, step_fn = _build(cfg, lr, microbatch, device, given, mesh)
     pipe = make_pipeline(cfg, batch, seq, path=data_path, prefetch=0)
+
+    def to_device(x):
+        x = torch.as_tensor(x, device=device)
+        if mesh is None:
+            return x
+        return shd.place(x, shd.batch_sharding(mesh, x.shape))
 
     start = 0
     if mgr is not None and mgr.latest() is not None:
-        params, opt, start, extra = _restore(mgr, params, opt, device)
+        params, opt, start, extra = _restore(mgr, params, opt, device, mesh)
         if "data" in extra:
             pipe.restore(extra["data"])
         print(f"[train] restored step {start}")
@@ -123,9 +153,9 @@ def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
                         and step_i == fail_at_step:
                     failed_once = True
                     raise WorkerFailure(f"injected failure at step {step_i}")
-                b = {k: torch.as_tensor(v, device=device)
-                     for k, v in next(pipe).items()}
-                params, opt, metrics = step_fn(params, opt, b)
+                b = {k: to_device(v) for k, v in next(pipe).items()}
+                with dctx.use_mesh(mesh):
+                    params, opt, metrics = step_fn(params, opt, b)
                 loss = float(metrics["loss"])
                 if not np.isfinite(loss):
                     raise WorkerFailure(f"non-finite loss at {step_i}")
@@ -155,14 +185,15 @@ def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
                 mgr.wait()
                 if mgr.latest() is not None:
                     params, opt, step_i, extra = _restore(mgr, params, opt,
-                                                          device)
+                                                          device, mesh)
                     if "data" in extra:
                         pipe.restore(extra["data"])
                     print(f"[supervisor] resumed from step {step_i}")
                     continue
             # no checkpoint yet: restart from scratch
             params = opt = None
-            params, opt, step_fn = _build(cfg, lr, microbatch, device, given)
+            params, opt, step_fn = _build(cfg, lr, microbatch, device, given,
+                                          mesh)
             pipe = make_pipeline(cfg, batch, seq, path=data_path, prefetch=0)
             step_i = 0
     if mgr is not None:

@@ -13,12 +13,21 @@ the training loss (``cross_entropy``).  Conventions are the reference's:
 These products are plain XLA matmuls in the reference, so they are plain
 ``torch.matmul`` here.  Mixed dtypes promote as in JAX (a bf16 cache read
 times f32 weights is an f32 product).
+
+On a mesh (``DTensor`` activations under
+``repro_torch.distributed.context.use_mesh``) the heads split over
+``model``, attention's core and the embedding lookup run on each rank's
+own shard under ``local_map``, the cache is written where each rank holds
+its sequence slice, and the row-parallel products sum their partials in
+f32.  Without a mesh every function is the plain one.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.distributed import context as dctx
 
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.bfloat16):
@@ -122,6 +131,84 @@ def _sdpa(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     return out.reshape(b, h, sq, hd).to(v.dtype)
 
 
+def _split_heads(t, n: int, hd: int, n_kv: int):
+    """(B, S, n*hd) -> (B, S, n, hd).  On a mesh the projection's output
+    dim is constrained first: split over ``model`` where the ``n_kv`` KV
+    heads (and so the query heads) divide it, else whole (a split inside
+    a head, or a query group, has no view rule)."""
+    b, s, _ = t.shape
+    if dctx.is_sharded(t):
+        t = dctx.constrain(t, dctx.batch_axes(), None,
+                           dctx.heads_axis(n_kv))
+    return t.reshape(b, s, n, hd)
+
+
+def _row_parallel(x, w):
+    """``x @ w`` (JAX's promotion) for a row-parallel weight (``wo``,
+    split over ``model`` along its input).  On a mesh each rank's partial
+    product is f32 and the partials are summed before the one rounding to
+    the activations' dtype, as a single product's f32 accumulator is: a
+    bf16 partial rounded and then summed would move the residual stream,
+    and a MoE router reading it, a bf16 step off the unsharded run."""
+    if not dctx.is_sharded(x):
+        return _mm(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = x.float() @ w.float()
+    y = dctx.constrain(y, dctx.batch_axes(), *(None,) * (y.dim() - 1))
+    return y.to(dt)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _core(q, k, v, *, cache_layout: bool, **kw):
+    """Attention on q (B, S, H, hd) and k / v (B, S, KV, hd), or in the
+    cache's (B, KV, S, hd) with ``cache_layout``: :func:`_sdpa` in its
+    head-major layout, the output back as a contiguous (B, S, H, hd)."""
+    q = q.transpose(1, 2)
+    if not cache_layout:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    return _sdpa(q, k, v, **kw).transpose(1, 2).contiguous()
+
+
+def _attend(q, k, v, n_kv: int, **kw):
+    """:func:`_core`.  On a mesh it runs under ``local_map`` on each
+    rank's batch rows and heads (split over ``model`` where the ``n_kv``
+    KV heads divide it): every softmax row is whole on its rank, and a
+    cache split along its sequence is regathered by head for the call.
+    The layouts change only inside it, on each rank's own tensors, and
+    the gradients it hands back are contiguous (a ``DTensor`` that views
+    a transposed gradient fails on some torch versions)."""
+    if not dctx.is_sharded(q):
+        return _core(q, k, v, **kw)
+    from torch.distributed.tensor.experimental import local_map
+    kv_heads = 1 if kw["cache_layout"] else 2
+    heads = dctx.heads_axis(n_kv)
+    q_place = list(dctx.fitted_placements(
+        q.shape, dctx.batch_axes(), None, heads, None))
+    kv_axes = [dctx.batch_axes(), None, None, None]
+    kv_axes[kv_heads] = heads
+    kv_place = list(dctx.fitted_placements(k.shape, *kv_axes))
+
+    def local(q, k, v):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return _core(q, k, v, **kw)
+
+    return local_map(local, out_placements=q_place,
+                     in_placements=(q_place, kv_place, kv_place),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def attention(p, x, *, n_heads, n_kv, hd, theta, causal=True, pos=None,
               cache=None, cache_index=None, causal_skip=False):
     """Returns (y, cache).
@@ -133,27 +220,28 @@ def attention(p, x, *, n_heads, n_kv, hd, theta, causal=True, pos=None,
     update fits, while positions and masks use the offset as given.
     """
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, n_kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, hd)
+    q = _split_heads(x @ p["wq"], n_heads, hd, n_kv)
+    k = _split_heads(x @ p["wk"], n_kv, hd, n_kv)
+    v = _split_heads(x @ p["wv"], n_kv, hd, n_kv)
     if pos is None:
         base = 0 if cache_index is None else int(cache_index)
         pos = (base + torch.arange(s, device=x.device)).expand(b, s)
-    q = apply_rope(q, pos, theta).transpose(1, 2)          # (B,H,S,hd)
-    k = apply_rope(k, pos, theta).transpose(1, 2)          # (B,KV,S,hd)
-    v = v.transpose(1, 2)
+    q = apply_rope(q, pos, theta)                          # (B,S,H,hd)
+    k = apply_rope(k, pos, theta)                          # (B,S,KV,hd)
     if cache is not None:
         ci = 0 if cache_index is None else int(cache_index)
         at = max(0, min(ci, cache["k"].shape[2] - s))
-        cache["k"][:, :, at:at + s] = k.to(cache["k"].dtype)
-        cache["v"][:, :, at:at + s] = v.to(cache["v"].dtype)
+        for name, t in (("k", k), ("v", v)):
+            dctx.write_slice(cache[name],
+                             t.transpose(1, 2).to(cache[name].dtype), 2, at)
         # causal over absolute positions (covers prefill-append and decode)
-        o = _sdpa(q, cache["k"], cache["v"], causal=True,
-                  q_pos=ci + torch.arange(s, device=x.device),
-                  kv_len=ci + s)
+        o = _attend(q, cache["k"], cache["v"], n_kv, cache_layout=True,
+                    causal=True, q_pos=ci + torch.arange(s, device=x.device),
+                    kv_len=ci + s)
     else:
-        o = _sdpa(q, k, v, causal=causal, causal_skip=causal_skip)
-    y = _mm(o.transpose(1, 2).reshape(b, s, n_heads * hd), p["wo"])
+        o = _attend(q, k, v, n_kv, cache_layout=False, causal=causal,
+                    causal_skip=causal_skip)
+    y = _row_parallel(o.reshape(b, s, n_heads * hd), p["wo"])
     return y, cache
 
 
@@ -171,7 +259,7 @@ def swiglu_init(gen, d, f, dtype=torch.bfloat16):
 
 def swiglu(p, x):
     h = torch.nn.functional.silu((x @ p["wg"]).float()).to(x.dtype)
-    return (h * (x @ p["wi"])) @ p["wo"]
+    return _row_parallel(h * (x @ p["wi"]), p["wo"])
 
 
 def gelu_mlp_init(gen, d, f, dtype=torch.bfloat16):
@@ -191,7 +279,27 @@ def embed_init(gen, v, d, dtype=torch.bfloat16):
 
 
 def embed(p, tokens):
-    return p["e"][tokens.long()]
+    """``e[tokens]``.  On a mesh the lookup runs under ``local_map`` on
+    each rank's token rows and its slice of the model width (the vocab
+    whole): a rank's gradient of ``e`` then sums its own tokens only, a
+    partial sum over the batch axes (the lookup's backward has no DTensor
+    rule on some torch versions)."""
+    e = p["e"]
+    if not dctx.is_sharded(e):
+        return e[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    e_place = [q if q == Shard(1) else Replicate() for q in e.placements]
+    t_place = list(tokens.placements)
+    out = [Shard(0) if t == Shard(0) else Shard(2) if q == Shard(1)
+           else Replicate() for t, q in zip(t_place, e_place)]
+    grad = [Partial() if t == Shard(0) else q
+            for t, q in zip(t_place, e_place)]
+    return local_map(lambda e, t: e[t.long()], out_placements=out,
+                     in_placements=(e_place, t_place),
+                     in_grad_placements=(grad, t_place),
+                     device_mesh=e.device_mesh,
+                     redistribute_inputs=True)(e, tokens)
 
 
 def unembed_init(gen, d, v, dtype=torch.bfloat16):
@@ -205,7 +313,12 @@ def unembed(p, x):
 def cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy of ``logits`` (..., V) against integer
     ``labels`` (...); with ``mask`` (...), the mask-weighted mean over at
-    least one token, as the reference."""
+    least one token, as the reference.  On a mesh the logits are gathered
+    along the vocab (their gather has no sharded rule), the batch kept
+    split."""
+    if dctx.is_sharded(logits):
+        logits = dctx.constrain(logits, dctx.batch_axes(),
+                                *(None,) * (logits.dim() - 1))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll

@@ -15,9 +15,17 @@ in each group, walked by a Python loop.  Parameter shapes, scales and
 dtypes are the reference's: normals drawn in f32 and cast to the model
 dtype (bf16 unless asked); norms, the router, the xLSTM gate weights and
 the Mamba-2 decay parameters in f32.  Every parameter is trainable;
-serving runs under ``torch.inference_mode()``.  The reference's
-sequence-sharding constraint (``seq_shard_acts``) is identity on one
-device and has no counterpart here.
+serving runs under ``torch.inference_mode()``.
+
+On a mesh (``repro_torch.distributed``: the parameters ``DTensor``s placed
+by ``param_shardings``, a mesh installed by ``context.use_mesh``) each
+layer gathers its parameters over ``data`` where it uses them (the
+reference's per-layer all-gather of the ZeRO axis), and with
+``cfg.seq_shard_acts`` the residual stream is constrained to (batch,
+``model``, -) between blocks, as the reference's ``_constrain_acts``.
+Without a mesh both are the identity.  The transformer branch (dense
+attention with SwiGLU, and MoE) runs on a mesh; the other families raise
+(:func:`check_mesh_family`).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, mla, moe, multimodal, xlstm
 from repro_torch.models.config import ArchConfig
@@ -190,7 +199,19 @@ def _remat(fn, cfg: ArchConfig):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _constrain_acts(x, cfg: ArchConfig):
+    """Sequence-parallel residual stream: (B, S, D) -> (batch, 'model',
+    -), when ``cfg.seq_shard_acts`` is set and a mesh is active."""
+    if not cfg.seq_shard_acts:
+        return x
+    baxes = dctx.batch_axes()
+    if baxes is None:
+        return x
+    return dctx.constrain(x, baxes, "model", None)
+
+
 def _tfm_block(blk, x, cfg: ArchConfig, cache, ci):
+    blk = dctx.gather_data(blk)
     h = L.rmsnorm(blk["ln1"], x)
     if cfg.mla is not None:
         a, new_cache = mla.mla_attention(
@@ -229,6 +250,19 @@ def _mixer(mix, blk, x, cfg: ArchConfig, group, i):
     return x
 
 
+def check_mesh_family(cfg: ArchConfig) -> None:
+    """``mesh=`` covers the transformer branch with dense attention (the
+    dense configs and the MoE); the other families raise."""
+    family = ("MLA" if cfg.mla is not None else
+              "xLSTM" if cfg.xlstm else
+              "Mamba-2 hybrid" if cfg.ssm is not None else
+              "audio encoder" if cfg.frontend == "audio" else
+              "vision" if cfg.frontend == "vision" else None)
+    if family is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {family} family does not run on a mesh yet")
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch):
     """tokens (+ frames / patches) -> (B, S, D) activations: audio frames
     through the frontend, vision patches through the connector and
@@ -236,7 +270,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
     the vision context lives in the KV cache after prefill)."""
     if cfg.frontend == "audio":
         return multimodal.audio_frontend(params["frontend"], batch["frames"])
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(dctx.gather_data(params["embed"]), batch["tokens"])
     if cfg.frontend == "vision" and "patches" in batch:
         vis = multimodal.vision_connector(params["frontend"],
                                           batch["patches"])
@@ -259,6 +293,8 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
     leftover Mamba-2 layers.  ``aux`` is the mean MoE load-balance loss
     over the transformer layers, 0 for the recurrent families.
     """
+    if dctx.get_mesh() is not None:
+        check_mesh_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.xlstm:
@@ -274,7 +310,7 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
         shared = params["shared_attn"]
         group = None if caches is None else caches["mamba"]
         for i, blk in enumerate(params.mamba):
-            x = _mixer(mix, blk, x, cfg, group, i)
+            x = _constrain_acts(_mixer(mix, blk, x, cfg, group, i), cfg)
             if (i + 1) % every:
                 continue
             cch = None if caches is None else \
@@ -296,15 +332,16 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
             else:
                 cch = {k: t[i] for k, t in caches["blocks"].items()}
                 x, _, moe_aux = _tfm_block(blk, x, cfg, cch, cache_index)
+            x = _constrain_acts(x, cfg)
             auxs.append(aux if moe_aux is None else moe_aux["aux_loss"])
         aux = torch.stack(auxs).mean()
     x = L.rmsnorm(params["final_norm"], x)
     if cfg.frontend == "audio":
         logits = L.unembed(params["head"], x)
     elif cfg.tie_embeddings:
-        logits = L._mm(x, params["embed"]["e"].T).float()
+        logits = L._mm(x, dctx.gather_data(params["embed"])["e"].T).float()
     else:
-        logits = L.unembed(params["unembed"], x)
+        logits = L.unembed(dctx.gather_data(params["unembed"]), x)
     return logits, caches, aux
 
 

@@ -14,8 +14,12 @@ backward's dx runs the same kernel, dw ``torch.bmm``; the integer routing
 carries no gradient, the gates and the router's probabilities do, as
 under ``jax.grad`` in the reference).  The kernel returns f32;
 its output is rounded to the activations' dtype first, as the reference's
-einsum returns that dtype.  The reference's sharding constraints are
-identity on one device and have no counterpart here.
+einsum returns that dtype.  The reference's four sharding constraints
+(``xe``, ``h``, the ``wi`` product and ``ye`` to experts on ``model``,
+capacity on ``data``) are :func:`repro_torch.distributed.context
+.constrain` calls: the identity without a mesh, a ``DTensor``
+redistribution on one, where each expert product runs the kernel on the
+rank's own experts under ``local_map``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels.group_matmul import grouped_expert_matmul
 from repro_torch.models.layers import _init, swiglu
 from repro_torch.sparse.dispatch import (bucketize, steal_overflow,
@@ -52,27 +57,17 @@ def _segment_count(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return out.scatter_add_(0, idx.long(), torch.ones_like(idx, dtype=dtype))
 
 
-def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):
-    """x: (B, S, D) -> (y, aux) with aux = load-balancing stats/loss.
-
-    Static shapes throughout: tokens are bucketized per expert with
-    capacity C = ceil(T*k/E * capacity_factor); overflow is re-routed
-    (load_steal) or dropped.  The top-k takes the lower expert index on
-    ties, as ``jax.lax.top_k`` does (a stable descending sort).
-    """
-    b, s, d = x.shape
-    t = b * s
+def _choose(xt, router, cfg, cap):
+    """The router of ``xt`` (T, D): its probabilities (T, E), each
+    message's destination expert (T*k,) and the gates (T, k)."""
+    t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(t, d)
-
-    logits = xt.float() @ p["router"]                        # (T, E)
+    logits = xt.float() @ router                             # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, choice = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, choice = gate[:, :k], choice[:, :k]                # (T, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    cap = deterministic_capacity or int(
-        math.ceil(t * k / e * cfg.capacity_factor))
     dest = choice.reshape(t * k).to(torch.int32)             # messages
     if cfg.load_steal:
         load = _segment_count(dest, e, torch.int32)
@@ -81,21 +76,21 @@ def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):
         # router's probability for the expert that actually serves it
         gate = torch.gather(probs, -1, dest.reshape(t, k).long())
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, dest, gate
+
+
+def _route(xt, router, cfg, cap):
+    """The router and the AM dispatch of ``xt`` (T, D): returns the
+    expert buffers ``xe`` (E, C, D), the gates (T, k), the messages'
+    destinations, bucket ranks and kept flags, and the aux loss, expert
+    utilisation and dropped fraction."""
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    probs, dest, gate = _choose(xt, router, cfg, cap)
     idx, valid, rank, kept = bucketize(dest, e, cap)         # AM buckets
 
     tok_of_slot = (idx // k).long()                          # (E, C)
     xe = torch.where(valid[..., None], xt[tok_of_slot], 0)   # (E, C, D)
-    h = torch.nn.functional.silu(
-        grouped_expert_matmul(xe, p["wg"]).to(x.dtype).float()
-    ).to(x.dtype)
-    h = h * grouped_expert_matmul(xe, p["wi"]).to(x.dtype)
-    ye = grouped_expert_matmul(h, p["wo"]).to(x.dtype)       # (E, C, D)
-
-    back = unbucketize(ye, dest, rank, kept)                 # (T*k, D)
-    y = (back.reshape(t, k, d) * gate[..., None].to(x.dtype)).sum(1)
-    if "shared" in p:
-        y = y + swiglu(p["shared"], xt)
-    y = y.reshape(b, s, d)
 
     # Switch-style aux load-balance loss + utilization stats
     me = probs.mean(0)
@@ -103,5 +98,102 @@ def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):
     aux_loss = e * torch.sum(me * ce)
     util = (ce > 0).float().mean()
     dropped = 1.0 - kept.float().mean()
+    return xe, gate, dest, rank, kept, aux_loss, util, dropped
+
+
+def _combine(ye, gate, dest, rank, kept):
+    """Each message's expert output back to its token, weighted by its
+    gate and summed over the token's k messages: (T, D)."""
+    t, k = gate.shape
+    back = unbucketize(ye, dest, rank, kept)                 # (T*k, D)
+    return (back.reshape(t, k, -1) * gate[..., None].to(ye.dtype)).sum(1)
+
+
+def _replicated(fn, n_out: int, *args):
+    """``fn`` on the whole of every ``DTensor`` argument, on every rank
+    alike (``local_map`` with every placement ``Replicate``); its
+    ``n_out`` outputs are replicated ``DTensor``s."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if dctx.is_sharded(a)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    return local_map(
+        fn, out_placements=tuple([rep] * n_out) if n_out > 1 else rep,
+        in_placements=tuple(rep if dctx.is_sharded(a) else None
+                            for a in args),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _expert_product(xe, w):
+    """``grouped_expert_matmul`` (E, C, D) @ (E, D, F).  On a mesh, the
+    kernel runs under ``local_map`` on each rank's own experts: ``xe``
+    keeps its placements (experts on ``model``, capacity on ``data``
+    where it divides), and ``w`` is gathered over every axis but the
+    experts'."""
+    if not dctx.is_sharded(xe):
+        return grouped_expert_matmul(xe, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_place = list(xe.placements)
+    w_place = [p if p == Shard(0) else Replicate() for p in x_place]
+    # a rank's dw sums over its own capacity slots only: over an axis that
+    # splits the capacity, the weights' gradient is a partial sum
+    w_grad = [Partial() if p == Shard(1) else q
+              for p, q in zip(x_place, w_place)]
+    return local_map(grouped_expert_matmul, out_placements=x_place,
+                     in_placements=(x_place, w_place),
+                     in_grad_placements=(x_place, w_grad),
+                     device_mesh=xe.device_mesh,
+                     redistribute_inputs=True)(xe, w)
+
+
+def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):
+    """x: (B, S, D) -> (y, aux) with aux = load-balancing stats/loss.
+
+    Static shapes throughout: tokens are bucketized per expert with
+    capacity C = ceil(T*k/E * capacity_factor); overflow is re-routed
+    (load_steal) or dropped.  The top-k takes the lower expert index on
+    ties, as ``jax.lax.top_k`` does (a stable descending sort).
+
+    On a mesh (``x`` a ``DTensor``) the router, the dispatch and the
+    combine run on the whole token set on every rank (the reference's
+    routing is global over the batch), and the expert buffers take the
+    reference's constraints: experts on ``model``, capacity on ``data``.
+    """
+    b, s, d = x.shape
+    t = b * s
+    if dctx.is_sharded(x):
+        # whole sequences on each rank (a sequence-parallel residual
+        # stream): the router reads every token anyway
+        x = dctx.constrain(x, dctx.batch_axes(), None, None)
+    xt = x.reshape(t, d)
+    cap = deterministic_capacity or int(
+        math.ceil(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    route = lambda xt, router: _route(xt, router, cfg, cap)  # noqa: E731
+    if dctx.is_sharded(x):
+        routed = _replicated(route, 8, xt, p["router"])
+    else:
+        routed = route(xt, p["router"])
+    xe, gate, dest, rank, kept, aux_loss, util, dropped = routed
+
+    # the expert dim on 'model' (EP), the capacity dim on 'data'; the slot
+    # gather across data shards is the AM all-to-all
+    xe = dctx.constrain(xe, "model", "data", None)
+    h = torch.nn.functional.silu(
+        _expert_product(xe, p["wg"]).to(x.dtype).float()).to(x.dtype)
+    h = dctx.constrain(h, "model", "data", None)
+    h = h * dctx.constrain(_expert_product(xe, p["wi"]).to(x.dtype),
+                           "model", "data", None)
+    ye = _expert_product(h, p["wo"]).to(x.dtype)             # (E, C, D)
+    ye = dctx.constrain(ye, "model", "data", None)
+
+    if dctx.is_sharded(x):
+        y = _replicated(_combine, 1, ye, gate, dest, rank, kept)
+        y = y.redistribute(xt.device_mesh, xt.placements)
+    else:
+        y = _combine(ye, gate, dest, rank, kept)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], xt)
+    y = y.reshape(b, s, d)
     return y, {"aux_loss": aux_loss, "expert_util": util,
                "dropped_frac": dropped}

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 
@@ -16,6 +18,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int):
         """tokens: (B, S) -> (logits of the last position, caches)."""
         b, _ = tokens.shape
         caches = lm.make_caches(cfg, b, cache_len, device=tokens.device)
+        if dctx.is_sharded(tokens):
+            caches = shd.place_caches(caches, tokens.device_mesh)
         logits, caches, _ = lm.forward(
             params, cfg, {"tokens": tokens}, caches=caches, cache_index=0)
         return logits[:, -1, :], caches

@@ -46,9 +46,10 @@ def tree_map(fn, tree, *rest):
 
 def adamw_init(params) -> AdamWState:
     """Zero moments, an f32 copy of ``params`` and a zero count, on the
-    parameters' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    parameters' device (the moments and the copy of a ``DTensor``
+    parameter are ``DTensor``s placed as it is)."""
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=torch.float32, memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return AdamWState(
         m=tree_map(zeros, params), v=tree_map(zeros, params),

@@ -5,13 +5,17 @@ hybrid, the xLSTM, the audio encoder and the VLM).
 One step is the forward and backward of :func:`loss_fn` (optionally over
 microbatches, whose gradients are summed in f32 as the reference's
 ``lax.scan`` does), then :func:`repro_torch.train.optimizer.adamw_update`.
-PyTorch runs eagerly, so there is no ``jit``; the reference's sharding
-annotations are identity on one device and have no counterpart here.
+PyTorch runs eagerly, so there is no ``jit``.  On a mesh the
+parameters, the optimizer state and the batch are ``DTensor``s: each
+gradient is redistributed to its parameter's placements before the
+update, and the metrics are gathered to plain 0-dim tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import cross_entropy
@@ -50,7 +54,9 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, microbatch: int | None = None,
         loss, aux = loss_fn(params, cfg, batch, aux_weight=aux_weight)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), aux.detach(), grads
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if dctx.is_sharded(g) else g for g, p in zip(grads, leaves)]
+        return dctx.whole(loss.detach()), dctx.whole(aux.detach()), grads
 
     def train_step(params, state, batch):
         tree = params.tree()
@@ -59,10 +65,11 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, microbatch: int | None = None,
             if b % microbatch:
                 raise ValueError(f"batch {b} is not a multiple of "
                                  f"microbatch {microbatch}")
-            chunks = [{k: v[i * (b // microbatch):(i + 1) * (b // microbatch)]
-                       for k, v in batch.items()} for i in range(microbatch)]
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+            n = b // microbatch
+            chunks = [{k: _rows(v, i * n, n) for k, v in batch.items()}
+                      for i in range(microbatch)]
+            gsum = [torch.zeros_like(p, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
                     for p in opt.tree_leaves(tree)]
             lsum = asum = 0.0
             for mb in chunks:
@@ -77,9 +84,18 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, microbatch: int | None = None,
         _, state, gnorm = opt.adamw_update(grads, state, opt.tree_leaves(tree),
                                            lr=lr)
         return params, state, {"loss": loss, "aux_loss": aux,
-                               "grad_norm": gnorm}
+                               "grad_norm": dctx.whole(gnorm)}
 
     return train_step
+
+
+def _rows(x, start: int, n: int):
+    """Rows ``start : start + n`` of a batch tensor; on a mesh, gathered
+    and split over the batch axes again."""
+    if not dctx.is_sharded(x):
+        return x[start:start + n]
+    return shd.place(x.full_tensor()[start:start + n],
+                     shd.batch_sharding(x.device_mesh, (n,)))
 
 
 def synth_batch(cfg: ArchConfig, batch: int, seq: int,

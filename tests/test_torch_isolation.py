@@ -53,12 +53,17 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.sparse.formats", "repro_torch.sparse.ops",
               "repro_torch.testing", "repro_torch.launch.mesh",
               "repro_torch.launch.sparse_dispatch",
-              "repro_torch.bench.multidevice"):
+              "repro_torch.bench.multidevice", "repro_torch.distributed",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.context"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "harness = [m for m in sys.modules\n"
+        "           if m.startswith('torch.testing._internal.distributed')]\n"
+        "assert not harness, harness\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
@@ -75,20 +80,26 @@ def test_imports_pull_in_no_jax_and_no_reference():
 
 def test_sources_have_no_forbidden_imports():
     """No import line of the port or the smoke script names jax, repro
-    or benchmarks."""
+    or benchmarks, and no module of the package names torch's test
+    harness (``torch.testing._internal``, whose threaded process group
+    only the tests and the smoke script use)."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(SRC, "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for p in paths:
         with open(p) as f:
-            hits = FORBIDDEN.findall(f.read())
+            text = f.read()
+        hits = FORBIDDEN.findall(text)
         assert not hits, (p, hits)
+        if p.startswith(SRC):
+            assert "torch.testing._internal" not in text, p
 
 
 def test_no_function_defaults_to_the_cpu():
-    """Every public function of the port that takes a ``device`` runs on
-    the card unless its caller names another device: the parameter
-    defaults to ``"cuda"`` or has no default."""
+    """Every public function of the port that takes a ``device`` (or a
+    mesh's ``device_type``) runs on the card unless its caller names
+    another device: the parameter defaults to ``"cuda"`` or has no
+    default."""
     import importlib
     import inspect
     seen = []
@@ -98,12 +109,14 @@ def test_no_function_defaults_to_the_cpu():
             if fname.startswith("_") or not inspect.isfunction(fn) or \
                     fn.__module__ != name:
                 continue
-            p = inspect.signature(fn).parameters.get("device")
-            if p is None:
-                continue
-            seen.append(f"{name}.{fname}")
-            assert p.default in ("cuda", inspect.Parameter.empty), \
-                (seen[-1], p.default)
+            params = inspect.signature(fn).parameters
+            for key in ("device", "device_type"):
+                p = params.get(key)
+                if p is None:
+                    continue
+                seen.append(f"{name}.{fname}")
+                assert p.default in ("cuda", inspect.Parameter.empty), \
+                    (seen[-1], p.default)
     for f in ("repro_torch.models.layers.make_cache",
               "repro_torch.models.layers.rmsnorm_init",
               "repro_torch.models.layers.rope_freqs",
@@ -119,7 +132,9 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.core.machine.run_many",
               "repro_torch.core.machine.shard_devices",
               "repro_torch.core.sweep.sweep",
-              "repro_torch.bench.fig17.run_grid_report"):
+              "repro_torch.bench.fig17.run_grid_report",
+              "repro_torch.checkpoint.store.restore_checkpoint",
+              "repro_torch.launch.mesh.device_mesh"):
         assert f in seen, f
 
 
