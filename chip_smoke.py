@@ -140,26 +140,41 @@ Phases (any failure raises and the script exits non-zero):
    (within 1e-6 of the sum of the terms' magnitudes) and each shard's
    error to ``compress_tree``'s bit for bit, with the max errors, wall
    ms and bytes moved;
-11. model parallelism (``[mesh]``), launch counts from 0: four ranks
-   as threads of this process on the card (torch's ``threaded`` process
-   group, :func:`thread_ranks`) over a (2, 2) ``("data", "model")``
-   ``DeviceMesh``; Phi-3.5-MoE at :data:`SERVE_CFG`'s width and depth,
-   its parameters from the ``[serve]`` phase's seeded generator, serves
-   the 6 requests at 4 slots (:data:`MESH_TRAFFIC`) through
-   ``serve_batch(mesh=)`` after the same serve unsharded; every rank
-   must launch ``group_matmul`` on its 8 local experts (and the launches
-   sum to the ranks' expert products), rank 0's layer-0 products of the
-   first prefill and decode step must agree with the plain version, the
-   first wave's prefill logits must be within 2e-2 of max |plain| of an
-   unsharded prefill that replays the mesh run's routing, and the served
-   tokens must equal the unsharded ones up to the first whose unsharded
-   top-2 margin is below the logit error measured so far; wall, peak
-   memory and launches are printed.  Then the reduced Phi-3.5-MoE and
-   Minitron-4B in f32 over (2, 2): logits within 1e-5 of the unsharded
-   forward, two ``train(mesh=)`` steps within 1e-5 relative of the
-   unsharded run (Phi's also of ``train_reduced.json``), and Phi's
-   checkpoint written under (2, 2) restored onto (1, 4) and (4, 1) bit
-   for bit, training resumed on each to the clean run's loss;
+11. model parallelism (``[mesh]``), launch counts from 0 in each serve:
+   four ranks as threads of this process on the card (torch's
+   ``threaded`` process group, :func:`thread_ranks`) over a (2, 2)
+   ``("data", "model")`` ``DeviceMesh``.  Two full-width MoE configs
+   serve the 6 requests at 4 slots (:data:`MESH_TRAFFIC`) through
+   ``serve_batch(mesh=)`` after the same serve unsharded
+   (:func:`run_mesh_serve`): Phi-3.5-MoE at :data:`SERVE_CFG`'s width and
+   depth (8 local experts a rank), then DeepSeek-V2-Lite with its MLA
+   (:data:`MESH_DEEPSEEK_CFG`, 4 of 27 layers, 32 local experts a rank),
+   each from a generator seeded with 0; every rank must launch
+   ``group_matmul`` on its local experts (and the launches sum to the
+   ranks' expert products), rank 0's layer-0 products of the first
+   prefill and decode step must agree with the plain version, every
+   rank must serve the same tokens, the serve is run once more unsharded,
+   fed the mesh's tokens and replaying its routing, and every forward's
+   last logits must lie within 2e-2 of max |plain| (the first forward's
+   residual stream is compared block by block, and the free unsharded
+   serve's tokens up to the first whose top-2 margin is below the logit
+   error); wall, peak memory and launches are printed.  Then the reduced
+   Phi-3.5-MoE and Minitron-4B in f32 over (2, 2): logits within 1e-5 of
+   the unsharded forward, ``serve_batch(mesh=)``'s tokens equal, two
+   ``train(mesh=)`` steps within 1e-5 relative of the unsharded run
+   (Phi's also of ``train_reduced.json``), and Phi's checkpoint written
+   under (2, 2) restored onto (1, 4) and (4, 1) bit for bit, training
+   resumed on each to the clean run's loss; then the reduced
+   DeepSeek-V2-Lite (MLA), Zamba2-1.2B (Mamba-2 hybrid), xLSTM-350M,
+   HuBERT-XLarge (audio encoder) and LLaVA-NeXT (vision prefill) in f32
+   over (2, 2) (:func:`run_mesh_families_reduced`): the forward within
+   1e-5 of unsharded (HuBERT's encode, LLaVA's patches, Zamba2 also
+   sequence-parallel), for the decoders a prefill and a decode step over
+   f32 caches and the caches after them within 1e-5 and
+   ``serve_batch(mesh=)``'s tokens equal (the record's traffic), two steps of
+   the training record within 1e-5 relative; and rank 0 held to the
+   reference's ``families_reduced.json`` (served tokens, encode and
+   vision logits) and ``train_families_reduced.json``;
 12. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
@@ -180,9 +195,9 @@ Phases (any failure raises and the script exits non-zero):
    shapes with its serve's launches, and ``group_matmul_deepseek_train``
    / ``group_matmul_deepseek_train_dx`` rows as the Phi training ones at
    DeepSeek's training shapes, with their launches a step, and a
-   ``group_matmul_mesh_serve`` row at rank 0's local shapes of the
-   ``[mesh]`` serve with the launches of its four ranks), the card line
-   and, last, the ok line.
+   ``group_matmul_mesh_serve`` and a ``group_matmul_deepseek_mesh_serve``
+   row at rank 0's local shapes of the ``[mesh]`` serves with the
+   launches of their four ranks), the card line and, last, the ok line.
 
 Needs one card, and exits non-zero without printing a result when CUDA
 is not available.
@@ -1314,6 +1329,11 @@ MESH_DENSE_ARCH = "minitron_4b"
 #: then a refill replayed through decode), tokens equal to unsharded
 MESH_REDUCED_SERVE = dict(max_new_tokens=3, batch_slots=4, cache_len=64)
 MESH_REDUCED_REQUESTS = 5
+#: the full-width MoE with MLA served over the mesh: DeepSeek-V2-Lite
+#: (arXiv:2405.04434: d 2048, 16 MLA heads, kv_lora 512, 64 experts top-6
+#: of 1,408 and 2 shared), depth cut 27 -> 4 layers, the cut of its
+#: training leg (``profile_train.FAMILY_LEGS``): 2.76 B parameters
+MESH_DEEPSEEK_CFG = FAMILY_LEGS["deepseek-v2-lite-16b"][0]
 
 
 class RankExpertCalls:
@@ -1458,8 +1478,10 @@ def compare_served(want_logits: list, got_logits: list) -> dict:
 
 
 def run_mesh_serve(cfg=SERVE_CFG, device="cuda") -> tuple[dict, dict]:
-    """Phi-3.5-MoE at full width (:data:`SERVE_CFG`) served over a (2, 2)
-    mesh of four thread-ranks on the card through ``serve_batch(mesh=)``,
+    """A full-width MoE ``cfg`` (:func:`main` passes Phi-3.5-MoE,
+    :data:`SERVE_CFG`, and DeepSeek-V2-Lite, :data:`MESH_DEEPSEEK_CFG`)
+    served over a (2, 2) mesh of four thread-ranks on the card through
+    ``serve_batch(mesh=)``,
     launch counts from 0, against the same serve on the card unsharded
     (before the counts are reset).  The routing is discrete and the two
     runs sum in other orders, so a bf16 step in a router's input can send
@@ -1708,6 +1730,209 @@ def run_mesh_reduced(device="cuda") -> dict:
     return stats
 
 
+#: the reduced families of the ``[mesh]`` phase (``golden.FAMILIES_SPEC``'s
+#: and ``TRAIN_FAMILIES_SPEC``'s archs), each held over (2, 2) to the
+#: unsharded port and to the reference's records
+MESH_FAMILIES = ("deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-350m",
+                 "hubert-xlarge", "llava-next-mistral-7b")
+#: the steps of each family's training record run over the mesh
+MESH_TRAIN_STEPS = 2
+
+
+def _family_params(cfg, device):
+    return params_from_numpy(golden.serve_params_numpy(
+        cfg, golden.FAMILIES_SPEC["param_seed"]), cfg, device)
+
+
+def mesh_family_inputs(cfg, device) -> dict:
+    """The forward's inputs of a reduced family over the mesh: HuBERT's
+    and LLaVA's records' own (``golden.family_inputs``: frames, or one
+    row of patches and tokens), else :func:`run_mesh_reduced`'s (4, 32)
+    tokens, a batch that splits over ``data`` (and whole chunks of the
+    Mamba-2 scan)."""
+    kind = ("encode" if cfg.frontend == "audio" else
+            "vision" if cfg.frontend == "vision" else None)
+    if kind is not None:
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in golden.family_inputs(cfg, kind).items()}
+    spec = golden.TRAIN_SPEC
+    rng = np.random.default_rng(1)
+    return {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (spec["batch"], spec["seq"])), dtype=torch.int32,
+        device=device)}
+
+
+def _family_forward(params, cfg, inp):
+    """The family's logits on ``inp`` (HuBERT through ``encode_step``),
+    gathered whole."""
+    if cfg.encoder_only:
+        return dctx.whole(encode_step(cfg)(params, inp["frames"]))
+    return dctx.whole(lm.forward(params, cfg, inp)[0])
+
+
+def first_layer_leaves(tree, path=()) -> dict:
+    """``"/"``-joined path -> leaf of a nested tree of dicts, the first
+    layer of each group's list."""
+    if isinstance(tree, list):
+        tree = tree[0]
+    if not isinstance(tree, dict):
+        return {"/".join(path): tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(first_layer_leaves(v, path + (k,)))
+    return out
+
+
+def _local_shapes(tree) -> dict:
+    """(local shape, global shape) of every ``DTensor`` leaf of
+    :func:`first_layer_leaves`."""
+    return {k: (tuple(v.to_local().shape), tuple(v.shape))
+            for k, v in first_layer_leaves(tree).items()
+            if dctx.is_sharded(v)}
+
+
+def mesh_family_leg(arch: str, device, mesh=None) -> dict:
+    """One reduced family in f32, on ``mesh`` (a named ``DeviceMesh``,
+    every rank calling alike) or unsharded on ``device``: the forward's
+    logits (:func:`mesh_family_inputs`), for Zamba2 also with
+    ``seq_shard_acts`` on, for the decoders a prefill of the first wave
+    of ``golden.serve_requests()`` and one decode step over f32 caches
+    (their last logits, and the caches after them, whole) and
+    ``serve_batch``'s tokens for the record's traffic, and
+    :data:`MESH_TRAIN_STEPS` steps of the training record
+    (``golden.train_family_run``).  On a mesh also each parameter's and
+    cache's (local, global) shape."""
+    cfg = configs.get_arch(configs.ALIASES[arch]).reduced()
+    params = _family_params(cfg, device)
+    inp = mesh_family_inputs(cfg, device)
+    out = {}
+    if mesh is not None:
+        placed = shd.place_params(params, mesh)
+        inp = {k: shd.place(v, shd.batch_sharding(mesh, v.shape))
+               for k, v in inp.items()}
+        out["params"] = _local_shapes(placed.tree())
+    else:
+        placed = params
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        out["logits"] = _family_forward(placed, cfg, inp)
+        if cfg.ssm is not None and not cfg.xlstm:
+            out["seq_logits"] = _family_forward(
+                placed, dataclasses.replace(cfg, seq_shard_acts=True), inp)
+        if not cfg.encoder_only:
+            toks = golden.first_wave_tokens(4, device)
+            caches = lm.make_caches(cfg, 4, MESH_REDUCED_SERVE["cache_len"],
+                                    dtype=torch.float32, device=device)
+            if mesh is not None:
+                toks = shd.place(toks, shd.batch_sharding(mesh, toks.shape))
+                caches = shd.place_caches(caches, mesh)
+            out["prefill"] = dctx.whole(lm.forward(
+                placed, cfg, {"tokens": toks}, caches=caches,
+                cache_index=0)[0][:, -1])
+            out["decode"] = dctx.whole(lm.forward(
+                placed, cfg, {"tokens": toks[:, :1]}, caches=caches,
+                cache_index=toks.shape[1])[0])
+            out["caches"] = {k: [dctx.whole(t) for t in group.values()]
+                             for k, group in caches.items()}
+            if mesh is not None:
+                out["cache_shapes"] = _local_shapes(caches)
+    if not cfg.encoder_only:
+        res = serve.serve_batch(arch, golden.serve_requests(), device=device,
+                                mesh=mesh, params=params,
+                                **golden.load_families_golden()["traffic"])
+        out["served"] = [o.tolist() for o in res.outputs]
+    out["train"] = golden.train_family_run(arch, device, mesh=mesh,
+                                           steps=MESH_TRAIN_STEPS)
+    return out
+
+
+def run_mesh_families(archs, device) -> tuple[dict, list]:
+    """:func:`mesh_family_leg` of each of ``archs`` unsharded on
+    ``device``, then over a (2, 2) mesh of four thread-ranks: (the
+    unsharded legs, each rank's legs)."""
+    want = {a: mesh_family_leg(a, device) for a in archs}
+
+    def rank(r):
+        mesh = device_mesh(*MESH_SHAPE, device)
+        return {a: mesh_family_leg(a, device, mesh) for a in archs}
+
+    return want, thread_ranks(rank, 4)
+
+
+def cache_err(got: dict, want: dict) -> float:
+    """The largest |got - want| / max(1, max |want|) over two runs' f32
+    caches (group -> list of whole leaves); raises unless every element is
+    within :data:`MESH_LOGIT_ATOL` of the leaf's max(1, max |want|) (a
+    recurrent state grows past 1)."""
+    err = 0.0
+    for k, leaves in want.items():
+        for g, w in zip(got[k], leaves):
+            scale = max(1.0, w.abs().max().item())
+            if g.shape != w.shape or (g - w).abs().max().item() > \
+                    MESH_LOGIT_ATOL * scale:
+                raise AssertionError(
+                    f"cache {k} over the mesh differs by "
+                    f"{(g - w).abs().max().item()} (max |value| {scale})")
+            err = max(err, (g - w).abs().max().item() / scale)
+    return err
+
+
+def run_mesh_families_reduced(device="cuda", archs=MESH_FAMILIES) -> dict:
+    """The reduced families in f32 over (2, 2) thread-ranks
+    (:func:`run_mesh_families`), every rank held to the unsharded port:
+    the forward's and the prefill's logits and the prefill's caches within
+    :data:`MESH_LOGIT_ATOL` (Zamba2's sequence-parallel forward too), the
+    decoders' served tokens equal, the training steps within
+    :data:`MESH_METRIC_RTOL`; and rank 0 to the reference's records
+    (``families_reduced.json``: the served tokens,
+    HuBERT's encode and LLaVA's vision logits; the first steps of
+    ``train_families_reduced.json``).  Raises on a miss."""
+    t0 = time.time()
+    want, runs = run_mesh_families(archs, device)
+    wall = time.time() - t0
+    fam = golden.load_families_golden()
+    trained = golden.load_train_families_golden()["archs"]
+    stats = dict(mesh=list(MESH_SHAPE), ranks="4 threads on one card",
+                 wall_s=wall)
+    for arch in archs:
+        w, got = want[arch], [r[arch] for r in runs]
+        row = {}
+        for key in ("logits", "seq_logits", "prefill", "decode"):
+            if key in w:
+                err = max((g[key] - w[key]).abs().max().item()
+                          for g in got)
+                if not err <= MESH_LOGIT_ATOL:
+                    raise AssertionError(f"{arch} {key} over the mesh "
+                                         f"differ by {err}")
+                row[f"{key}_max_abs_err"] = err
+        if "caches" in w:
+            row["cache_max_rel_err"] = max(
+                cache_err(g["caches"], w["caches"]) for g in got)
+        if "served" in w:
+            if any(g["served"] != w["served"] for g in got):
+                raise AssertionError(f"{arch} served over the mesh "
+                                     f"{got[0]['served']}, unsharded "
+                                     f"{w['served']}")
+            row["served_tokens_equal"] = sum(map(len, w["served"]))
+            row["golden_tokens_compared"] = golden.check_serve_tokens(
+                got[0]["served"], fam["serve"][arch])
+        row["train_max_rel_err"] = max(
+            _close(g["train"][k], w["train"][k], f"{arch} {k} over the mesh")
+            for g in got for k in ("loss", "aux_loss", "grad_norm"))
+        kind = {"hubert-xlarge": "encode",
+                "llava-next-mistral-7b": "vision"}.get(arch)
+        if kind is not None:
+            row["golden_logit_max_abs_err"] = golden.check_logits(
+                got[0]["logits"], fam[kind])
+        g = got[0]["train"]
+        row["golden_train_max_rel_err"] = golden.check_train(
+            g["loss"], g["aux_loss"], g["grad_norm"],
+            {k: trained[arch][k][:MESH_TRAIN_STEPS]
+             for k in ("loss", "aux_loss", "grad_norm")})
+        stats[arch] = row
+    print(f"[mesh] families {json.dumps(stats)}", flush=True)
+    return stats
+
+
 def training_shape_times(stats: dict, calls: dict,
                          name: str = "group_matmul_train") -> list:
     """The ``<name>`` and ``<name>_dx`` rows: the kernel on a training
@@ -1929,13 +2154,19 @@ def main() -> int:
     # --- model parallelism over thread-ranks, launch counts from zero -------
     t_mesh = time.time()
     mesh_served, calls = run_mesh_serve()
-    torch.cuda.empty_cache()
-    mesh_reduced = run_mesh_reduced()
     mesh_row = serving_shape_times(mesh_served, calls,
                                    name="group_matmul_mesh_serve")
     print(f"[kernel] {json.dumps(mesh_row)}", flush=True)
     del calls
     torch.cuda.empty_cache()
+    mesh_deepseek, calls = run_mesh_serve(MESH_DEEPSEEK_CFG)
+    mesh_deepseek_row = serving_shape_times(
+        mesh_deepseek, calls, name="group_matmul_deepseek_mesh_serve")
+    print(f"[kernel] {json.dumps(mesh_deepseek_row)}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    mesh_reduced = run_mesh_reduced()
+    mesh_families = run_mesh_families_reduced()
     print(f"[mesh] phase {time.time() - t_mesh:.1f} s", flush=True)
 
     rows = check_kernels(errs)
@@ -1945,7 +2176,7 @@ def main() -> int:
     rows += train_rows
     rows.append(deepseek_row)
     rows += deepseek_train_rows
-    rows.append(mesh_row)
+    rows += [mesh_row, mesh_deepseek_row]
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"simulator": sim, "serve": {
         k: served[k] for k in ("serves", "prefill_s", "decode_s",
@@ -1969,12 +2200,13 @@ def main() -> int:
         "train_families_reduced": fam_train_reduced,
         "static": static, "sparse": sparse_row, "shard": shard_rows,
         "dispatch": dispatch_rows, "mesh": {
-            "serve": {k: mesh_served[k] for k in (
-                "wall_s", "prefill_s", "decode_s", "decode_tok_s",
-                "group_matmul_launches", "launches_by_rank",
+            **{key: {k: v[k] for k in (
+                "arch", "wall_s", "prefill_s", "decode_s", "decode_tok_s",
+                "group_matmul_launches", "launches_by_rank", "local_experts",
                 "peak_mem_bytes", "prefill_rel_err", "max_forward_rel_err",
-                "choices_compared")},
-            "reduced": mesh_reduced}}))
+                "choices_compared")} for key, v in (
+                    ("serve", mesh_served), ("deepseek", mesh_deepseek))},
+            "reduced": mesh_reduced, "families": mesh_families}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -627,25 +627,36 @@ def train_family_batch(cfg, *, batch: int | None = None,
     return {"tokens": toks, "labels": toks}
 
 
-def train_family_run(arch: str, device) -> dict:
+def train_family_run(arch: str, device, *, mesh=None,
+                     steps: int | None = None) -> dict:
     """The port's run of one arch of the reduced families' training record
     on ``device`` (f32): its ``loss``, ``aux_loss`` and ``grad_norm`` at
-    each step, as floats."""
+    each of ``steps`` steps (by default the record's), as floats.  With
+    ``mesh`` (a named ``DeviceMesh`` whose ranks each call this alike) the
+    parameters are placed by ``param_shardings`` and the batch over the
+    batch axes, and the steps run on that mesh."""
     from repro_torch import configs
     from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as shd
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import make_train_step
     spec = TRAIN_FAMILIES_SPEC
     cfg = configs.get_arch(configs.ALIASES[arch]).reduced()
     params = params_from_numpy(serve_params_numpy(cfg, spec["param_seed"]),
                                cfg, device)
-    state = adamw_init(params.tree())
-    step = make_train_step(cfg, lr=spec["lr"], aux_weight=spec["aux_weight"])
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in train_family_batch(cfg).items()}
+    if mesh is not None:
+        params = shd.place_params(params, mesh)
+        batch = {k: shd.place(v, shd.batch_sharding(mesh, v.shape))
+                 for k, v in batch.items()}
+    state = adamw_init(params.tree())
+    step = make_train_step(cfg, lr=spec["lr"], aux_weight=spec["aux_weight"])
     out: dict = {"loss": [], "aux_loss": [], "grad_norm": []}
-    for _ in range(spec["steps"]):
-        params, state, m = step(params, state, batch)
+    for _ in range(spec["steps"] if steps is None else steps):
+        with dctx.use_mesh(mesh):
+            params, state, m = step(params, state, batch)
         for k in out:
             out[k].append(float(m[k]))
     return out

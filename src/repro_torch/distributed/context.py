@@ -102,6 +102,15 @@ def constrain(x, *axes):
     return x.redistribute(mesh, place)
 
 
+def batch_only(x):
+    """``x`` with its leading (batch) dim split over the batch axes and
+    every other dim whole, if a mesh is active and ``x`` is a
+    ``DTensor``; otherwise ``x`` itself."""
+    if get_mesh() is None or not is_sharded(x):
+        return x
+    return constrain(x, batch_axes(), *(None,) * (x.dim() - 1))
+
+
 def batch_axes():
     mesh = get_mesh()
     if mesh is None:

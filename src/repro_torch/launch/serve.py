@@ -55,10 +55,10 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
 
     ``mesh``: a named ``DeviceMesh`` (``data``, ``model``) over ranks the
     caller has started, each of which calls ``serve_batch`` alike and gets
-    the same result.  The parameters are placed by ``param_shardings``,
-    the caches by ``cache_specs`` and each token batch over the batch
-    axes: the placements the reference's dry run gives its prefill and
-    decode cells.  The reference's own ``serve_batch`` only installs the
+    the same result; every decoder family serves on it.  The parameters
+    are placed by ``param_shardings``, the caches by ``cache_specs`` and
+    each token batch over the batch axes: the placements the reference's
+    dry run gives its prefill and decode cells.  The reference's own ``serve_batch`` only installs the
     mesh context, and its jitted steps keep the parameters where their
     init put them; the port follows the dry run, so that each rank holds
     its own slices only.  Without it everything runs on ``device``.
@@ -82,7 +82,6 @@ def serve_batch(arch: str | ArchConfig, requests: list[np.ndarray], *,
         cfg = cfg.reduced()
     assert not cfg.encoder_only, "encoder-only archs have no decode path"
     if mesh is not None:
-        lm.check_mesh_family(cfg)
         device = rank_device(mesh)
 
     if params is None:

@@ -100,7 +100,9 @@ def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
     placed by ``param_shardings`` and the optimizer state like them; the
     batch is split over the batch axes, a restore places every leaf on
     this mesh (whatever mesh saved it), and the mesh's first rank writes
-    the checkpoints.  Without it everything runs on ``device``.
+    the checkpoints.  Every family trains on it (the frontend families
+    take their frames or patches through ``make_train_step``, not this
+    loop's token stream).  Without it everything runs on ``device``.
 
     Deviations from the reference:
 
@@ -120,7 +122,6 @@ def train(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8,
     if reduced:
         cfg = cfg.reduced()
     if mesh is not None:
-        lm.check_mesh_family(cfg)
         device = rank_device(mesh)
     mgr = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
 

@@ -15,7 +15,11 @@ These products are plain XLA matmuls in the reference, so they are plain
 times f32 weights is an f32 product).
 
 On a mesh (``DTensor`` activations under
-``repro_torch.distributed.context.use_mesh``) the heads split over
+``repro_torch.distributed.context.use_mesh``) the input of attention and
+of each MLP is made whole along everything but the batch (a residual
+stream split along its width or its sequence: the column-parallel
+products then sum each output in one accumulator, and no view flattens
+a split sequence, which some torch versions refuse), the heads split over
 ``model``, attention's core and the embedding lookup run on each rank's
 own shard under ``local_map``, the cache is written where each rank holds
 its sequence slice, and the row-parallel products sum their partials in
@@ -153,9 +157,7 @@ def _row_parallel(x, w):
     if not dctx.is_sharded(x):
         return _mm(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
-    y = x.float() @ w.float()
-    y = dctx.constrain(y, dctx.batch_axes(), *(None,) * (y.dim() - 1))
-    return y.to(dt)
+    return dctx.batch_only(x.float() @ w.float()).to(dt)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -180,33 +182,61 @@ def _core(q, k, v, *, cache_layout: bool, **kw):
     return _sdpa(q, k, v, **kw).transpose(1, 2).contiguous()
 
 
+def _local(fn, outs: list, *args):
+    """``fn`` on each rank's own shards, under ``local_map``: ``args`` are
+    ``(DTensor, placements)`` pairs, each input redistributed to its
+    placements and handed to ``fn`` as its local tensor; ``outs`` holds
+    one placements tuple per output of ``fn`` (one output is returned as
+    it is, several as a tuple).  An input that is whole over a mesh dim
+    that splits the first output gets a partial-sum gradient there (each
+    rank's backward sees its own outputs only), and every gradient handed
+    back is contiguous (a ``DTensor`` that views a transposed gradient
+    fails on some torch versions).  So every output must be whole over
+    the same mesh dims as the first."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    whole = [q == Replicate() for q in outs[0]]
+    if any([q == Replicate() for q in o] != whole for o in outs[1:]):
+        raise ValueError(f"outputs whole over different mesh dims: {outs}")
+    places = tuple(tuple(p) for _, p in args)
+    grads = tuple(tuple(Partial() if q == Replicate() and o != Replicate()
+                        else q for q, o in zip(p, outs[0]))
+                  for p in places)
+
+    def local(*ts):
+        return fn(*(_ContiguousGrad.apply(t) for t in ts))
+
+    out = (list(outs[0]) if len(outs) == 1 else
+           tuple(list(o) for o in outs))
+    return local_map(local, out_placements=out, in_placements=places,
+                     in_grad_placements=grads,
+                     device_mesh=args[0][0].device_mesh,
+                     redistribute_inputs=True)(*(t for t, _ in args))
+
+
+def _placed(t, *axes):
+    """``(t, its placements on the active mesh for axes)``: an argument of
+    :func:`_local` (:func:`dctx.fitted_placements`)."""
+    return t, dctx.fitted_placements(t.shape, *axes)
+
+
 def _attend(q, k, v, n_kv: int, **kw):
     """:func:`_core`.  On a mesh it runs under ``local_map`` on each
     rank's batch rows and heads (split over ``model`` where the ``n_kv``
     KV heads divide it): every softmax row is whole on its rank, and a
     cache split along its sequence is regathered by head for the call.
-    The layouts change only inside it, on each rank's own tensors, and
-    the gradients it hands back are contiguous (a ``DTensor`` that views
-    a transposed gradient fails on some torch versions)."""
+    The layouts change only inside it, on each rank's own tensors."""
     if not dctx.is_sharded(q):
         return _core(q, k, v, **kw)
-    from torch.distributed.tensor.experimental import local_map
     kv_heads = 1 if kw["cache_layout"] else 2
     heads = dctx.heads_axis(n_kv)
-    q_place = list(dctx.fitted_placements(
-        q.shape, dctx.batch_axes(), None, heads, None))
+    q_place = dctx.fitted_placements(
+        q.shape, dctx.batch_axes(), None, heads, None)
     kv_axes = [dctx.batch_axes(), None, None, None]
     kv_axes[kv_heads] = heads
-    kv_place = list(dctx.fitted_placements(k.shape, *kv_axes))
-
-    def local(q, k, v):
-        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
-        return _core(q, k, v, **kw)
-
-    return local_map(local, out_placements=q_place,
-                     in_placements=(q_place, kv_place, kv_place),
-                     device_mesh=q.device_mesh,
-                     redistribute_inputs=True)(q, k, v)
+    kv_place = dctx.fitted_placements(k.shape, *kv_axes)
+    return _local(lambda q, k, v: _core(q, k, v, **kw), [q_place],
+                  (q, q_place), (k, kv_place), (v, kv_place))
 
 
 def attention(p, x, *, n_heads, n_kv, hd, theta, causal=True, pos=None,
@@ -220,6 +250,7 @@ def attention(p, x, *, n_heads, n_kv, hd, theta, causal=True, pos=None,
     update fits, while positions and masks use the offset as given.
     """
     b, s, _ = x.shape
+    x = dctx.batch_only(x)
     q = _split_heads(x @ p["wq"], n_heads, hd, n_kv)
     k = _split_heads(x @ p["wk"], n_kv, hd, n_kv)
     v = _split_heads(x @ p["wv"], n_kv, hd, n_kv)
@@ -258,6 +289,7 @@ def swiglu_init(gen, d, f, dtype=torch.bfloat16):
 
 
 def swiglu(p, x):
+    x = dctx.batch_only(x)
     h = torch.nn.functional.silu((x @ p["wg"]).float()).to(x.dtype)
     return _row_parallel(h * (x @ p["wi"]), p["wo"])
 
@@ -269,8 +301,9 @@ def gelu_mlp_init(gen, d, f, dtype=torch.bfloat16):
 
 def gelu_mlp(p, x):
     """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    x = dctx.batch_only(x)
     h = torch.nn.functional.gelu((x @ p["wi"]).float(), approximate="tanh")
-    return h.to(x.dtype) @ p["wo"]
+    return _row_parallel(h.to(x.dtype), p["wo"])
 
 
 # -------------------------------------------------------------- embedding --
@@ -287,19 +320,13 @@ def embed(p, tokens):
     e = p["e"]
     if not dctx.is_sharded(e):
         return e[tokens.long()]
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    e_place = [q if q == Shard(1) else Replicate() for q in e.placements]
-    t_place = list(tokens.placements)
-    out = [Shard(0) if t == Shard(0) else Shard(2) if q == Shard(1)
-           else Replicate() for t, q in zip(t_place, e_place)]
-    grad = [Partial() if t == Shard(0) else q
-            for t, q in zip(t_place, e_place)]
-    return local_map(lambda e, t: e[t.long()], out_placements=out,
-                     in_placements=(e_place, t_place),
-                     in_grad_placements=(grad, t_place),
-                     device_mesh=e.device_mesh,
-                     redistribute_inputs=True)(e, tokens)
+    from torch.distributed.tensor import Replicate, Shard
+    e_place = tuple(q if q == Shard(1) else Replicate() for q in e.placements)
+    t_place = tuple(tokens.placements)
+    out = tuple(Shard(0) if t == Shard(0) else Shard(2) if q == Shard(1)
+                else Replicate() for t, q in zip(t_place, e_place))
+    return _local(lambda e, t: e[t.long()], [out], (e, e_place),
+                  (tokens, t_place))
 
 
 def unembed_init(gen, d, v, dtype=torch.bfloat16):
@@ -316,9 +343,7 @@ def cross_entropy(logits, labels, mask=None):
     least one token, as the reference.  On a mesh the logits are gathered
     along the vocab (their gather has no sharded rule), the batch kept
     split."""
-    if dctx.is_sharded(logits):
-        logits = dctx.constrain(logits, dctx.batch_axes(),
-                                *(None,) * (logits.dim() - 1))
+    logits = dctx.batch_only(logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll

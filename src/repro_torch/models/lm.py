@@ -19,13 +19,15 @@ serving runs under ``torch.inference_mode()``.
 
 On a mesh (``repro_torch.distributed``: the parameters ``DTensor``s placed
 by ``param_shardings``, a mesh installed by ``context.use_mesh``) each
-layer gathers its parameters over ``data`` where it uses them (the
-reference's per-layer all-gather of the ZeRO axis), and with
+layer, the Zamba2 shared block, the frontend and the head gather their
+parameters over ``data`` where they are used (the reference's per-layer
+all-gather of the ZeRO axis), a recurrent layer's new state is written
+into each rank's own shard of the stacked cache, and with
 ``cfg.seq_shard_acts`` the residual stream is constrained to (batch,
 ``model``, -) between blocks, as the reference's ``_constrain_acts``.
-Without a mesh both are the identity.  The transformer branch (dense
-attention with SwiGLU, and MoE) runs on a mesh; the other families raise
-(:func:`check_mesh_family`).
+Without a mesh all of these are the identity.  Every family runs on a
+mesh: the head or channel split of each block is its module's
+(``layers``, ``mla``, ``mamba2``, ``xlstm``, ``moe``).
 """
 from __future__ import annotations
 
@@ -237,8 +239,12 @@ def _tfm_block(blk, x, cfg: ArchConfig, cache, ci):
 
 def _mixer(mix, blk, x, cfg: ArchConfig, group, i):
     """One recurrent layer, ``x + mix(rmsnorm(x))`` (Mamba-2, mLSTM or
-    sLSTM).  With ``group`` (the group's stacked caches) it reads layer
-    ``i``'s state and writes the new state back in place."""
+    sLSTM), its parameters gathered over ``data`` on a mesh.  With
+    ``group`` (the group's stacked caches) it reads layer ``i``'s state
+    and writes the new state back in place (on a mesh, into each rank's
+    own shard)."""
+    blk = dctx.gather_data(blk)
+
     def body(x, cache=None):
         y, new = mix(blk["mixer"], L.rmsnorm(blk["ln"], x), cache=cache)
         return x + y, new
@@ -246,35 +252,26 @@ def _mixer(mix, blk, x, cfg: ArchConfig, group, i):
         return _remat(lambda x: body(x)[0], cfg)(x)
     x, new = body(x, {k: t[i] for k, t in group.items()})
     for k, t in new.items():
-        group[k][i].copy_(t)
+        dctx.write_slice(group[k], t.unsqueeze(0), 0, i)
     return x
-
-
-def check_mesh_family(cfg: ArchConfig) -> None:
-    """``mesh=`` covers the transformer branch with dense attention (the
-    dense configs and the MoE); the other families raise."""
-    family = ("MLA" if cfg.mla is not None else
-              "xLSTM" if cfg.xlstm else
-              "Mamba-2 hybrid" if cfg.ssm is not None else
-              "audio encoder" if cfg.frontend == "audio" else
-              "vision" if cfg.frontend == "vision" else None)
-    if family is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {family} family does not run on a mesh yet")
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch):
     """tokens (+ frames / patches) -> (B, S, D) activations: audio frames
     through the frontend, vision patches through the connector and
     prepended to the tokens, else the tokens alone (also the VLM's decode:
-    the vision context lives in the KV cache after prefill)."""
+    the vision context lives in the KV cache after prefill).  On a mesh
+    the two parts of the VLM's input are joined with the batch split and
+    the rest whole."""
     if cfg.frontend == "audio":
-        return multimodal.audio_frontend(params["frontend"], batch["frames"])
+        return multimodal.audio_frontend(dctx.gather_data(params["frontend"]),
+                                         batch["frames"])
     x = L.embed(dctx.gather_data(params["embed"]), batch["tokens"])
     if cfg.frontend == "vision" and "patches" in batch:
-        vis = multimodal.vision_connector(params["frontend"],
-                                          batch["patches"])
-        x = torch.cat([vis.to(x.dtype), x], dim=1)
+        vis = multimodal.vision_connector(
+            dctx.gather_data(params["frontend"]), batch["patches"])
+        x = torch.cat([dctx.batch_only(vis.to(x.dtype)),
+                       dctx.batch_only(x)], dim=1)
     return x
 
 
@@ -293,8 +290,6 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
     leftover Mamba-2 layers.  ``aux`` is the mean MoE load-balance loss
     over the transformer layers, 0 for the recurrent families.
     """
-    if dctx.get_mesh() is not None:
-        check_mesh_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.xlstm:
@@ -307,7 +302,6 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
     elif cfg.ssm is not None:
         mix = functools.partial(mamba2.mamba2_apply, cfg=cfg.ssm)
         every = cfg.ssm.attn_every
-        shared = params["shared_attn"]
         group = None if caches is None else caches["mamba"]
         for i, blk in enumerate(params.mamba):
             x = _constrain_acts(_mixer(mix, blk, x, cfg, group, i), cfg)
@@ -315,6 +309,7 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
                 continue
             cch = None if caches is None else \
                 {k: t[i // every] for k, t in caches["shared_attn"].items()}
+            shared = dctx.gather_data(params["shared_attn"])
             a, _ = L.attention(
                 shared["attn"], L.rmsnorm(shared["ln"], x),
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, hd=cfg.hd,
@@ -335,9 +330,9 @@ def forward(params: LM, cfg: ArchConfig, batch, *, caches=None,
             x = _constrain_acts(x, cfg)
             auxs.append(aux if moe_aux is None else moe_aux["aux_loss"])
         aux = torch.stack(auxs).mean()
-    x = L.rmsnorm(params["final_norm"], x)
+    x = dctx.batch_only(L.rmsnorm(params["final_norm"], x))
     if cfg.frontend == "audio":
-        logits = L.unembed(params["head"], x)
+        logits = L.unembed(dctx.gather_data(params["head"]), x)
     elif cfg.tie_embeddings:
         logits = L._mm(x, dctx.gather_data(params["embed"])["e"].T).float()
     else:

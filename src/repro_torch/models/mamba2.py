@@ -12,12 +12,15 @@ products underflow in bf16), and so are ``a_log`` and ``dt_bias``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init, rmsnorm, rmsnorm_init
+from repro_torch.distributed import context as dctx
+from repro_torch.models import layers as L
+from repro_torch.models.layers import _init, rmsnorm_init
 
 
 def mamba2_init(gen, d, cfg, dtype=torch.bfloat16):
@@ -77,13 +80,47 @@ def _ssd_chunk_scan(xh, a, b, c, chunk):
     return out.reshape(bsz, s, nh, hp).to(out_dtype)
 
 
-def _split_proj(p, x, d, cfg):
-    di = cfg.expand * d
-    nh, ds = cfg.n_heads, cfg.d_state
-    z, xin, bc, dt = torch.split(x @ p["win"], [di, di, 2 * nh * ds, nh],
-                                 dim=-1)
-    b, c = torch.chunk(bc.reshape(*bc.shape[:-1], nh, 2 * ds), 2, dim=-1)
-    return z, xin, b, c, dt
+def _scan(xin, bc, dt, conv, a_log, dt_bias, *state, cfg):
+    """The per-channel and per-head part of the block: the depthwise
+    causal conv, the decay and the SSD (chunked without a cache, the exact
+    per-token recurrence from ``state`` = (conv, h) with one).  xin (B, S,
+    di), bc (B, S, nh·2·ds), dt (B, S, nh) and the parameters hold as many
+    heads as they are given (a rank's own on a mesh).  Returns y (B, S,
+    di), and with a state also the new conv window and h."""
+    bsz, s, di = xin.shape
+    nh = dt.shape[-1]
+    hp = di // nh
+    dtype = xin.dtype
+    b, c = torch.chunk(bc.reshape(bsz, s, nh, 2 * cfg.d_state), 2, dim=-1)
+
+    # depthwise causal conv over the sequence
+    if not state:
+        pad = torch.zeros((bsz, cfg.d_conv - 1, di), dtype=xin.dtype,
+                          device=xin.device)
+    else:
+        pad = state[0]
+    xpad = torch.cat([pad, xin], dim=1)
+    xc = sum(xpad[:, i:i + s, :] * conv[i] for i in range(cfg.d_conv))
+    xc = F.silu(xc.float()).to(dtype)
+
+    dt = F.softplus(dt.float() + dt_bias)                       # (B,S,nh)
+    a = torch.exp(-torch.exp(a_log)[None, None] * dt)           # decay
+    xh = xc.reshape(bsz, s, nh, hp) * dt[..., None].to(dtype)   # dt·x
+    bmat, cmat = b.to(dtype), c.to(dtype)
+
+    if not state:
+        y = _ssd_chunk_scan(xh, a, bmat, cmat, min(cfg.chunk, s))
+        return y.reshape(bsz, s, di)
+    # exact recurrence, one step at a time
+    h = state[1].float()
+    ys = []
+    for t in range(s):
+        h = h * a[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xh[:, t].float(), bmat[:, t].float())
+        ys.append(torch.einsum("bhn,bhpn->bhp", cmat[:, t].float(), h))
+    y = torch.stack(ys, dim=1).to(dtype)
+    return (y.reshape(bsz, s, di), xpad[:, -(cfg.d_conv - 1):, :],
+            h.to(state[1].dtype))
 
 
 def mamba2_apply(p, x, cfg, *, cache=None):
@@ -91,46 +128,38 @@ def mamba2_apply(p, x, cfg, *, cache=None):
 
     cache: {"conv": (B, d_conv-1, di), "h": (B,nh,hp,ds)}; the new cache
     is a new dict of new tensors, as the reference's.
+
+    On a mesh the fused projection [z, x, B, C, dt] is regathered along
+    its features (its parts sit at uneven offsets, so a column split cuts
+    inside them); z and x then split by channel and B, C and dt by head
+    over ``model`` (where the heads divide it), matching ``conv`` and the
+    ``conv`` / ``h`` caches, and the conv and the scan run under
+    ``local_map`` on each rank's batch rows and heads.  The gated RMSNorm
+    reduces over the whole ``di``; ``wout`` is row-parallel.
     """
     bsz, s, d = x.shape
     di = cfg.expand * d
-    nh = cfg.n_heads
-    hp = di // nh
-    z, xin, b, c, dt = _split_proj(p, x, d, cfg)
-
-    # depthwise causal conv over the sequence
-    if cache is None:
-        pad = torch.zeros((bsz, cfg.d_conv - 1, di), dtype=xin.dtype,
-                          device=x.device)
+    nh, ds = cfg.n_heads, cfg.d_state
+    proj = dctx.batch_only(dctx.batch_only(x) @ p["win"])
+    z, xin, bc, dt = torch.split(proj, [di, di, 2 * nh * ds, nh], dim=-1)
+    state = () if cache is None else (cache["conv"], cache["h"])
+    scan = functools.partial(_scan, cfg=cfg)
+    if dctx.is_sharded(x):
+        batch, heads = dctx.batch_axes(), dctx.heads_axis(nh)
+        z = dctx.constrain(z, batch, None, heads)
+        ins = [L._placed(t, batch, None, heads) for t in (xin, bc, dt)]
+        ins += [L._placed(p["conv"], None, heads),
+                L._placed(p["a_log"], heads), L._placed(p["dt_bias"], heads)]
+        if state:
+            ins += [L._placed(state[0], batch, None, heads),
+                    L._placed(state[1], batch, heads, None, None)]
+        out = L._local(scan, [pl for _, pl in ins[:1] + ins[6:]], *ins)
     else:
-        pad = cache["conv"]
-    xpad = torch.cat([pad, xin], dim=1)
-    xc = sum(xpad[:, i:i + s, :] * p["conv"][i] for i in range(cfg.d_conv))
-    xc = F.silu(xc.float()).to(x.dtype)
-
-    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,nh)
-    a = torch.exp(-torch.exp(p["a_log"])[None, None] * dt)      # decay
-    xh = xc.reshape(bsz, s, nh, hp) * dt[..., None].to(x.dtype)  # dt·x
-    bmat, cmat = b.to(x.dtype), c.to(x.dtype)
-
-    if cache is None:
-        y = _ssd_chunk_scan(xh, a, bmat, cmat, min(cfg.chunk, s))
-        new_cache = None
-    else:
-        # exact recurrence, one step at a time
-        h = cache["h"].float()
-        ys = []
-        for t in range(s):
-            h = h * a[:, t, :, None, None] + torch.einsum(
-                "bhp,bhn->bhpn", xh[:, t].float(), bmat[:, t].float())
-            ys.append(torch.einsum("bhn,bhpn->bhp", cmat[:, t].float(), h))
-        y = torch.stack(ys, dim=1).to(x.dtype)
-        new_cache = {"conv": xpad[:, -(cfg.d_conv - 1):, :],
-                     "h": h.to(cache["h"].dtype)}
-
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(p["dnorm"], y) * F.silu(z.float()).to(x.dtype)
-    return y @ p["wout"], new_cache
+        out = scan(xin, bc, dt, p["conv"], p["a_log"], p["dt_bias"], *state)
+    y, new_cache = (out, None) if cache is None else \
+        (out[0], {"conv": out[1], "h": out[2]})
+    y = L.rmsnorm(p["dnorm"], y) * F.silu(z.float()).to(x.dtype)
+    return L._row_parallel(y, p["wout"]), new_cache
 
 
 def make_mamba_cache(bsz, d, cfg, dtype=torch.bfloat16, device="cuda"):

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.distributed import context as dctx
 from repro_torch.kernels.group_matmul import grouped_expert_matmul
-from repro_torch.models.layers import _init, swiglu
+from repro_torch.models.layers import _init, _local, swiglu
 from repro_torch.sparse.dispatch import (bucketize, steal_overflow,
                                          unbucketize)
 
@@ -114,14 +114,8 @@ def _replicated(fn, n_out: int, *args):
     alike (``local_map`` with every placement ``Replicate``); its
     ``n_out`` outputs are replicated ``DTensor``s."""
     from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
-    mesh = next(a for a in args if dctx.is_sharded(a)).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    return local_map(
-        fn, out_placements=tuple([rep] * n_out) if n_out > 1 else rep,
-        in_placements=tuple(rep if dctx.is_sharded(a) else None
-                            for a in args),
-        device_mesh=mesh, redistribute_inputs=True)(*args)
+    rep = (Replicate(),) * args[0].device_mesh.ndim
+    return _local(fn, [rep] * n_out, *((a, rep) for a in args))
 
 
 def _expert_product(xe, w):
@@ -129,22 +123,15 @@ def _expert_product(xe, w):
     kernel runs under ``local_map`` on each rank's own experts: ``xe``
     keeps its placements (experts on ``model``, capacity on ``data``
     where it divides), and ``w`` is gathered over every axis but the
-    experts'."""
+    experts' (a rank's dw then sums over its own capacity slots only: a
+    partial sum over an axis that splits the capacity)."""
     if not dctx.is_sharded(xe):
         return grouped_expert_matmul(xe, w)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    x_place = list(xe.placements)
-    w_place = [p if p == Shard(0) else Replicate() for p in x_place]
-    # a rank's dw sums over its own capacity slots only: over an axis that
-    # splits the capacity, the weights' gradient is a partial sum
-    w_grad = [Partial() if p == Shard(1) else q
-              for p, q in zip(x_place, w_place)]
-    return local_map(grouped_expert_matmul, out_placements=x_place,
-                     in_placements=(x_place, w_place),
-                     in_grad_placements=(x_place, w_grad),
-                     device_mesh=xe.device_mesh,
-                     redistribute_inputs=True)(xe, w)
+    from torch.distributed.tensor import Replicate, Shard
+    x_place = tuple(xe.placements)
+    w_place = tuple(p if p == Shard(0) else Replicate() for p in x_place)
+    return _local(grouped_expert_matmul, [x_place], (xe, x_place),
+                  (w, w_place))
 
 
 def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):

@@ -11,13 +11,15 @@ precomputed frame or patch embeddings.
   connector and prepended to the token embeddings.
 
 The inputs come from outside the model, so their products promote as in
-JAX (f32 features against bf16 weights give f32).
+JAX (f32 features against bf16 weights give f32).  On a mesh ``proj`` and
+``w1`` are column-parallel and ``w2`` row-parallel (its partials summed
+in f32), the frames and patches split over the batch axes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import _init, _mm
+from repro_torch.models.layers import _init, _mm, _row_parallel
 
 
 def audio_frontend_init(gen, d_in, d_model, dtype=torch.bfloat16):
@@ -39,4 +41,4 @@ def vision_connector(p, patches):
     (tanh form) in f32, then cast to the patches' dtype."""
     h = torch.nn.functional.gelu(_mm(patches, p["w1"]).float(),
                                  approximate="tanh")
-    return _mm(h.to(patches.dtype), p["w2"])
+    return _row_parallel(h.to(patches.dtype), p["w2"])

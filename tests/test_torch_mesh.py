@@ -19,7 +19,6 @@ inputs:
 One session of four ranks runs everything (DTensor's first call of each
 op and placement is its slow one, so the tests share it).
 """
-import collections
 import dataclasses
 import os
 import sys
@@ -238,30 +237,6 @@ def test_a_dim_split_over_both_axes_is_data_major(ranks):
         seen[tuple(coord)] = local
     k = lambda d, m: [2.0 * (2 * d + m), 2.0 * (2 * d + m) + 1]  # noqa: E731
     assert seen == {(d, m): k(d, m) for d in range(2) for m in range(2)}
-
-
-class _StandIn:
-    """A mesh as far as the spec functions read one (no ranks)."""
-    shape = collections.OrderedDict((("data", 2), ("model", 2)))
-    mesh_dim_names = ("data", "model")
-
-
-@pytest.mark.parametrize("arch,family", [
-    ("deepseek_v2_lite_16b", "MLA"), ("zamba2_1p2b", "Mamba-2"),
-    ("xlstm_350m", "xLSTM"), ("hubert_xlarge", "audio"),
-    ("llava_next_mistral_7b", "vision")])
-def test_mesh_with_a_family_out_of_scope_raises(arch, family):
-    """``mesh=`` covers the dense attention families and the MoE; the
-    others raise, naming the family, before anything runs."""
-    with pytest.raises(NotImplementedError, match=family):
-        train(arch, steps=1, mesh=_StandIn())
-    cfg = _cfg(arch)
-    with pytest.raises(NotImplementedError, match=family), \
-            dctx.use_mesh(_StandIn()):
-        lm.forward(None, cfg, {})
-    if not cfg.encoder_only:
-        with pytest.raises(NotImplementedError, match=family):
-            serve_batch(arch, golden.serve_requests(), mesh=_StandIn())
 
 
 @pytest.mark.cuda
