@@ -175,7 +175,23 @@ Phases (any failure raises and the script exits non-zero):
    the training record within 1e-5 relative; and rank 0 held to the
    reference's ``families_reduced.json`` (served tokens, encode and
    vision logits) and ``train_families_reduced.json``;
-12. time each kernel and its plain version with CUDA events over
+12. the dry run and the roofline (``[dryrun]``), after the ``[mesh]``
+   ranks are gone: the counter's rule for ``DTensor``s on this torch
+   (a product of two split matrices on 512 fake ranks counts rank 0's
+   1,048,576 FLOPs and its redistribution a 2,048-byte all-gather); one
+   greedy decode step of Phi-3.5-MoE at full width, 2 of 32 layers, 4
+   slots against a 512-token cache, on the card under
+   ``repro_torch.launch.roofline.Counter`` with ``group_matmul``
+   launched 3 times a layer, whose FLOPs and eager bytes must equal
+   the same step's on fake ``cuda`` tensors exactly, and its median
+   CUDA-event time over 10 steps beside its bound at the H100 constants
+   (``t_compute``, ``t_memory``, the bound's share of the time), and
+   the host time the ``repro_torch::group_matmul`` operator adds to a
+   call over its implementation; then ``dryrun.run_cell(device="cuda")`` of Phi-3.5-MoE's
+   ``decode_32k`` on the 16 x 16 mesh of 256 fake ranks and Zamba2's
+   ``long_500k`` on the 2 x 16 x 16 mesh of 512 (every record printed),
+   which must allocate nothing on the card and leave no process group;
+13. time each kernel and its plain version with CUDA events over
    CUDA-graph replays, and one PyTorch library call of the same function
    with CUDA events over back-to-back calls (median of 21 each; fewer at
    the training shapes, whose plain version takes tens of ms), at the
@@ -184,7 +200,7 @@ Phases (any failure raises and the script exits non-zero):
    dx shapes; compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-13. print the kernels line (a row per leg with the legs' launches,
+14. print the kernels line (a row per leg with the legs' launches,
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
@@ -223,6 +239,7 @@ import torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness, multidevice  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
+from repro_torch.bench import dryrun_check  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
 from repro_torch.bench.profile_engine import (grid_a_engine,  # noqa: E402
@@ -240,7 +257,7 @@ from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
 from repro_torch.kernels.group_matmul import tile_by_expert  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
 from repro_torch.launch.train_100m import tokens_per_s  # noqa: E402
@@ -1933,6 +1950,75 @@ def run_mesh_families_reduced(device="cuda", archs=MESH_FAMILIES) -> dict:
     return stats
 
 
+#: the ``[dryrun]`` phase's real step: the ``[serve]`` cell's Phi-3.5-MoE
+#: at full width, 2 of its 32 layers, one greedy decode step of 4 slots
+#: against a 512-token cache, counted on the card and on fake tensors
+DRYRUN_CFG = dataclasses.replace(SERVE_CFG, n_layers=2)
+DRYRUN_SLOTS, DRYRUN_CACHE = 4, 512
+#: the dry run's cells run on the card's host (arch, shape, multi-pod):
+#: fake tensors on the 256- and 512-rank fake process groups
+DRYRUN_CELLS = (("phi35_moe_42b", "decode_32k", False),
+                ("zamba2_1p2b", "long_500k", True))
+
+
+def run_dryrun(card: str) -> dict:
+    """The dry run and the roofline (``[dryrun]``): the counter's rule for
+    ``DTensor``s on this torch (rank 0's 1,048,576 FLOPs and a 2,048-byte
+    all-gather on 512 fake ranks), one real decode step of
+    :data:`DRYRUN_CFG` on the card under the counter, with the kernel
+    launched, whose FLOPs and eager bytes must equal the same step's on
+    fake ``cuda`` tensors, timed beside its roofline bound, and the
+    :data:`DRYRUN_CELLS` through ``dryrun.run_cell(device="cuda")``, which
+    must allocate nothing on the card and leave no process group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("a process group outlived the earlier phases")
+    probe = dryrun_check.skip_rule_probe("cuda")
+    print(f"[dryrun] skip rule {json.dumps(probe)}", flush=True)
+    if probe["product_flops"] != 1_048_576 or probe[
+            "gather_bytes"]["all-gather"] != 2 * 256 * 4:
+        raise AssertionError(f"the counter's DTensor rule on torch "
+                             f"{torch.__version__}: {probe}")
+
+    disp = dryrun_check.dispatch_us("cuda")
+    print(f"[dryrun] group_matmul operator dispatch {json.dumps(disp)}",
+          flush=True)
+    step = dryrun_check.real_vs_fake(DRYRUN_CFG, slots=DRYRUN_SLOTS,
+                                     cache_len=DRYRUN_CACHE, device="cuda")
+    print(f"[dryrun] step {json.dumps(step)}; {card}", flush=True)
+    if (step["real_flops"], step["real_bytes"]) != (step["fake_flops"],
+                                                    step["fake_bytes"]):
+        raise AssertionError(f"the real step counts otherwise than the "
+                             f"fake one: {step}")
+    if step["group_matmul_launches"] != 3 * DRYRUN_CFG.n_layers:
+        raise AssertionError(f"group_matmul launched "
+                             f"{step['group_matmul_launches']} times in the "
+                             f"counted step, not 3 a layer")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cells = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        t0 = time.time()
+        rec = dryrun.run_cell(arch, shape, multi, save=False, device="cuda")
+        if dist.is_initialized():
+            raise AssertionError("run_cell left a process group behind")
+        rec["wall_s"] = time.time() - t0
+        print(f"[dryrun] cell {json.dumps(rec)}", flush=True)
+        cells.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "flops_reported", "bytes_reported",
+            "collective_total", "memory", "model_flops", "wall_s")})
+    peak = torch.cuda.max_memory_allocated()
+    if peak > base:
+        raise AssertionError(f"the fake cells allocated on the card: peak "
+                             f"{peak} B over {base} B")
+    keep = ("real_flops", "real_bytes", "group_matmul_launches", "step_ms",
+            "t_compute_ms", "t_memory_ms", "bound_ms", "bound_share")
+    return dict(probe=probe, dispatch=disp, step={k: step[k] for k in keep},
+                cells=cells, card=card)
+
+
 def training_shape_times(stats: dict, calls: dict,
                          name: str = "group_matmul_train") -> list:
     """The ``<name>`` and ``<name>_dx`` rows: the kernel on a training
@@ -2169,6 +2255,11 @@ def main() -> int:
     mesh_families = run_mesh_families_reduced()
     print(f"[mesh] phase {time.time() - t_mesh:.1f} s", flush=True)
 
+    # --- the dry run and the roofline on the card's host --------------------
+    t_dr = time.time()
+    dry = run_dryrun(card)
+    print(f"[dryrun] phase {time.time() - t_dr:.1f} s", flush=True)
+
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -2206,7 +2297,8 @@ def main() -> int:
                 "peak_mem_bytes", "prefill_rel_err", "max_forward_rel_err",
                 "choices_compared")} for key, v in (
                     ("serve", mesh_served), ("deepseek", mesh_deepseek))},
-            "reduced": mesh_reduced, "families": mesh_families}}))
+            "reduced": mesh_reduced, "families": mesh_families},
+        "dryrun": dry}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ import math
 import sys
 import threading
 
-from repro_torch.distributed.sharding import P, axis_sizes, placements
+from repro_torch.distributed.sharding import (P, axis_sizes, local_box,
+                                              placements)
 
 _LOCAL = threading.local()
 
@@ -129,18 +130,16 @@ def write_slice(dst, src, dim: int, at: int) -> None:
         dst.narrow(dim, at, n).copy_(src)
         return
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     want = tuple(Replicate() if p == Shard(dim) else p
                  for p in dst.placements)
     src = src.to(dst.dtype).redistribute(dst.device_mesh, want).to_local()
     local = dst.to_local()
-    shape, offset = compute_local_shape_and_global_offset(
-        dst.shape, dst.device_mesh, dst.placements)
-    lo = max(at, offset[dim])
-    hi = min(at + n, offset[dim] + shape[dim])
+    offsets, sizes = local_box(dst.shape, dst.device_mesh, dst.placements)
+    offset, size = offsets[dim], sizes[dim]
+    lo = max(at, offset)
+    hi = min(at + n, offset + size)
     if hi > lo:
-        local.narrow(dim, lo - offset[dim], hi - lo).copy_(
+        local.narrow(dim, lo - offset, hi - lo).copy_(
             src.narrow(dim, lo - at, hi - lo))
 
 
@@ -176,3 +175,15 @@ def heads_axis(n: int):
         return None
     size = axis_sizes(mesh).get("model", 1)
     return "model" if n % size == 0 else None
+
+
+def grad_as_input(x):
+    """``x`` itself, on a mesh through an explicit redistribution to its
+    own placements, whose backward hands the gradient back at ``x``'s
+    placements.  Before a reshape that splits a dim ``x`` holds whole
+    (heads that do not divide over ``model``): the gradient a
+    row-parallel product returns is split along the flat dim, where the
+    split cuts inside a head and the reshape's backward has no rule."""
+    if get_mesh() is None or not is_sharded(x):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)

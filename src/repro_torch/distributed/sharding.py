@@ -260,6 +260,26 @@ def place(x: torch.Tensor, sharding: NamedSharding):
                               stride=d.stride())
 
 
+def local_box(shape, device_mesh, placements) -> tuple:
+    """(offsets, sizes) of the calling rank's shard of a tensor of
+    ``shape`` placed by ``placements``: each mesh dim that splits a
+    tensor dim, in mesh order, takes ``torch.chunk``'s piece of what the
+    earlier ones left (DTensor's layout).  Computed on the host: torch's
+    own helper builds a tensor of the offsets, which a fake tensor cannot
+    read back."""
+    from torch.distributed.tensor import Shard
+    coord = device_mesh.get_coordinate()
+    offsets, sizes = [0] * len(shape), list(shape)
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = sizes[p.dim]
+            step = -(-n // device_mesh.size(m))
+            start = min(coord[m] * step, n)
+            offsets[p.dim] += start
+            sizes[p.dim] = min(step, n - start)
+    return tuple(offsets), tuple(sizes)
+
+
 def place_params(params, device_mesh):
     """A model (an ``LM``) distributed leaf by leaf on ``device_mesh`` by
     :func:`param_shardings`: a new ``LM`` whose parameters are
@@ -269,12 +289,42 @@ def place_params(params, device_mesh):
                        param_shardings(params, device_mesh)))
 
 
-def place_caches(caches, device_mesh):
+def place_caches(caches, device_mesh, *, long_context: bool = False):
     """Decode caches (``lm.make_caches``' tree) distributed by
-    :func:`cache_specs`."""
-    specs = cache_specs(caches, device_mesh)
+    :func:`cache_specs`; with ``long_context`` (a batch of one) the
+    sequence is split over ``("data", "model")`` and the batch whole."""
+    specs = cache_specs(caches, device_mesh, long_context=long_context)
     return _zip_map(lambda x, s: place(x, named(s, device_mesh)), caches,
                     specs)
+
+
+def zero_caches(caches_like, device_mesh, device, *,
+                long_context: bool = False):
+    """Zero decode caches of the shapes and dtypes of ``caches_like`` (a
+    tree of ``lm.make_caches``' structure, on any device, ``meta`` too)
+    as ``DTensor``s placed by :func:`cache_specs` (``long_context`` as
+    there), each made from the calling rank's own zero shard on
+    ``device``: the whole cache never exists on any rank.  Caches that
+    already hold values are placed by :func:`place_caches`."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(x, spec):
+        sharding = named(spec, device_mesh)
+        _, local = local_box(x.shape, device_mesh, sharding.placements)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=x.dtype, device=device), device_mesh,
+            sharding.placements, shape=x.shape, stride=_contiguous(x.shape))
+
+    return _zip_map(zeros, caches_like, cache_specs(
+        caches_like, device_mesh, long_context=long_context))
+
+
+def _contiguous(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
 
 
 def _zip_map(fn, tree, other):

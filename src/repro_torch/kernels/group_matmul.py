@@ -12,6 +12,15 @@ the contraction in order with plain f32 FMA.  On CPU tensors it runs :func:`grou
 same function in plain PyTorch.  The kernel's bound and design are noted in
 the CUDA source's header.
 
+Both are the implementations of one operator,
+``torch.ops.repro_torch.group_matmul`` (``torch.library.custom_op``), with
+a fake implementation (a ``FakeTensorMode`` run gets its (t, f) f32 shape
+without a kernel) and a FLOP formula in ``torch.utils.flop_counter``'s
+registry that counts the rows the kernel multiplies, ``2 t d f``.  So a
+dispatch mode, such as the dry run's counter
+(``repro_torch.launch.roofline.Counter``), sees one operator where the
+kernel runs, whichever device runs it.
+
 Unlike the reference wrapper, nothing pads ``d`` or ``f`` to 128: the
 kernel masks its edges, so the reference's ``dk`` / ``fk`` block sizes
 have no counterpart here.
@@ -21,6 +30,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -47,6 +57,8 @@ def group_matmul_plain(x: torch.Tensor, expert_of_tile: torch.Tensor,
 
 
 def _check(x, expert_of_tile, w, tile_m) -> None:
+    """Dtypes, devices and shapes (no value is read: the op's fake tensors
+    have none)."""
     if x.dtype not in _FLOATS or w.dtype != x.dtype:
         raise ValueError("x and w must share a dtype, f32 or bf16; got "
                          f"{x.dtype} and {w.dtype}")
@@ -64,32 +76,26 @@ def _check(x, expert_of_tile, w, tile_m) -> None:
     if expert_of_tile.shape != (x.shape[0] // tile_m,):
         raise ValueError(f"expert_of_tile must be ({x.shape[0] // tile_m},)"
                          f", got {tuple(expert_of_tile.shape)}")
-    if x.device.type == "cpu" and expert_of_tile.numel() and (
+
+
+@torch.library.custom_op("repro_torch::group_matmul", mutates_args=(),
+                         device_types="cpu")
+def _group_matmul_op(x: torch.Tensor, expert_of_tile: torch.Tensor,
+                     w: torch.Tensor, tile_m: int) -> torch.Tensor:
+    """The operator's CPU implementation: :func:`group_matmul_plain`, after
+    the expert ids are read back and checked (on the card they are not
+    read: that would stall the stream, and the kernel writes NaN for such
+    a tile instead)."""
+    if expert_of_tile.numel() and (
             int(expert_of_tile.min()) < 0
             or int(expert_of_tile.max()) >= w.shape[0]):
-        # on the card the ids are not read back (that would stall the
-        # stream); the kernel writes NaN for such a tile instead
         raise ValueError(f"expert ids must lie in [0, {w.shape[0]})")
+    return group_matmul_plain(x, expert_of_tile, w, tile_m=tile_m)
 
 
-def group_matmul(x: torch.Tensor, expert_of_tile: torch.Tensor,
-                 w: torch.Tensor, *, tile_m: int = 128) -> torch.Tensor:
-    """out[i] = x[i] @ w[expert_of_tile[i // tile_m]].
-
-    Args:
-      x: (t, d) tokens, f32 or bf16, grouped so that each tile of
-        ``tile_m`` rows belongs to one expert (t % tile_m == 0).
-      expert_of_tile: (t // tile_m,) int32.
-      w: (e, d, f), ``x``'s dtype.
-    Returns:
-      (t, f) f32.  A CUDA ``x`` launches the kernel (or raises); a CPU
-      ``x`` runs :func:`group_matmul_plain`.
-    """
-    _check(x, expert_of_tile, w, tile_m)
-    if x.device.type == "cpu":
-        return group_matmul_plain(x, expert_of_tile, w, tile_m=tile_m)
-    if x.device.type != "cuda":
-        raise ValueError(f"no group_matmul for device {x.device}")
+@_group_matmul_op.register_kernel("cuda")
+def _group_matmul_cuda(x, expert_of_tile, w, tile_m):
+    """The operator's CUDA implementation: the hand-written kernel."""
     x, w = x.contiguous(), w.contiguous()
     eid = expert_of_tile.contiguous()
     t, d = x.shape
@@ -106,6 +112,46 @@ def group_matmul(x: torch.Tensor, expert_of_tile: torch.Tensor,
         with _COUNT_LOCK:      # ranks run as threads launch it at once
             group_matmul.launches += 1
     return out
+
+
+@_group_matmul_op.register_fake
+def _group_matmul_fake(x, expert_of_tile, w, tile_m):
+    return x.new_empty((x.shape[0], w.shape[2]), dtype=torch.float32)
+
+
+def _group_matmul_flops(x_shape, eid_shape, w_shape, tile_m, *args,
+                       **kwargs) -> int:
+    """``2 t d f``: every row the kernel multiplies, the tiles' padding
+    rows included (the plain version's product of every row by every
+    expert is not what the operator does, so it is never counted)."""
+    t, d = x_shape
+    return 2 * t * d * w_shape[2]
+
+
+register_flop_formula(torch.ops.repro_torch.group_matmul)(_group_matmul_flops)
+
+
+def group_matmul(x: torch.Tensor, expert_of_tile: torch.Tensor,
+                 w: torch.Tensor, *, tile_m: int = 128) -> torch.Tensor:
+    """out[i] = x[i] @ w[expert_of_tile[i // tile_m]], through the operator
+    ``torch.ops.repro_torch.group_matmul``.
+
+    Args:
+      x: (t, d) tokens, f32 or bf16, grouped so that each tile of
+        ``tile_m`` rows belongs to one expert (t % tile_m == 0).
+      expert_of_tile: (t // tile_m,) int32.
+      w: (e, d, f), ``x``'s dtype.
+    Returns:
+      (t, f) f32.  A CUDA ``x`` launches the kernel (or raises); a CPU
+      ``x`` runs :func:`group_matmul_plain`; a fake ``x`` gives a fake
+      result (``FakeTensorMode``, the dry run), and any other device
+      raises.
+    """
+    _check(x, expert_of_tile, w, tile_m)
+    if x.device.type not in ("cpu", "cuda"):
+        # a fake tensor reports the device it stands in for
+        raise ValueError(f"no group_matmul for device {x.device}")
+    return torch.ops.repro_torch.group_matmul(x, expert_of_tile, w, tile_m)
 
 
 group_matmul.launches = 0

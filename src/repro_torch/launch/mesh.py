@@ -26,6 +26,7 @@ Building a mesh is a function call, never an import side effect.
 from __future__ import annotations
 
 import collections
+import math
 
 import numpy as np
 import torch
@@ -148,14 +149,18 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(arr.reshape(shape), axes)
 
 
-def device_mesh(data: int, model: int, device_type: str = "cuda"):
-    """A named ``DeviceMesh`` of ``(data, model)`` ranks in rank order,
-    over the default process group, which the caller has initialised with
-    ``data * model`` ranks (NCCL under ``torchrun``, ``gloo`` processes,
-    or ranks as threads)."""
+def device_mesh(data: int, model: int, device_type: str = "cuda", *,
+                pod: int | None = None):
+    """A named ``DeviceMesh`` of ``(data, model)`` ranks in rank order, or
+    of ``(pod, data, model)`` with ``pod`` (the reference's multi-pod
+    mesh), over the default process group, which the caller has
+    initialised with as many ranks (NCCL under ``torchrun``, ``gloo``
+    processes, ranks as threads, or the dry run's ``fake`` group)."""
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh(device_type, torch.arange(data * model).reshape(
-        data, model), mesh_dim_names=("data", "model"))
+    shape = (data, model) if pod is None else (pod, data, model)
+    names = ("data", "model") if pod is None else ("pod", "data", "model")
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(
+        shape), mesh_dim_names=names)
 
 
 def rank_device(device_mesh) -> torch.device:

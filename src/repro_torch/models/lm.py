@@ -176,6 +176,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return LM(tree)
 
 
+def shape_params(cfg: ArchConfig, *, device="cuda", dtype=torch.bfloat16,
+                 fake_mode=None) -> LM:
+    """The model's parameters as fake tensors on ``device``: their shapes
+    and dtypes, nothing allocated (the reference's ``shape_params``, the
+    dry-run path).  Built by :func:`init_params` under ``fake_mode`` (a
+    new ``FakeTensorMode`` by default), whose later ops they take part
+    in."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_mode or FakeTensorMode():
+        return init_params(cfg, torch.Generator(device=device), dtype)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -349,9 +361,17 @@ def _stacked(n: int, one: dict) -> dict:
 
 
 def make_caches(cfg: ArchConfig, b: int, s: int, dtype=torch.bfloat16,
-                device="cuda"):
+                device="cuda", *, mesh=None, long_context: bool = False):
     """Decode caches with a leading layer axis, as the reference's.  The
-    xLSTM's caches and the Mamba-2 state are f32 whatever ``dtype``."""
+    xLSTM's caches and the Mamba-2 state are f32 whatever ``dtype``.
+    With ``mesh`` (a named ``DeviceMesh``) every leaf is a zero
+    ``DTensor`` placed by ``sharding.cache_specs``, of which each rank
+    makes only its own shard; with ``long_context`` too (a batch of one)
+    the sequence is split over ``("data", "model")``."""
+    if mesh is not None:
+        from repro_torch.distributed import sharding as shd
+        like = make_caches(cfg, b, s, dtype, device="meta")
+        return shd.zero_caches(like, mesh, device, long_context=long_context)
     d = cfg.d_model
     if cfg.xlstm:
         n = layer_groups(cfg)

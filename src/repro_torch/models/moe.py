@@ -181,6 +181,9 @@ def moe_apply(p, x, cfg, *, deterministic_capacity: int | None = None):
         y = _combine(ye, gate, dest, rank, kept)
     if "shared" in p:
         y = y + swiglu(p["shared"], xt)
-    y = y.reshape(b, s, d)
+    # the residual stream may hand the gradient back split along the
+    # sequence (seq_shard_acts): taken at y's own placements, its flatten
+    # to tokens in the backward needs no strided shard
+    y = dctx.grad_as_input(y.reshape(b, s, d))
     return y, {"aux_loss": aux_loss, "expert_util": util,
                "dropped_frac": dropped}

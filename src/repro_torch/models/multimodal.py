@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models.layers import _init, _mm, _row_parallel
 
 
@@ -27,8 +28,11 @@ def audio_frontend_init(gen, d_in, d_model, dtype=torch.bfloat16):
 
 
 def audio_frontend(p, feats):
-    """feats: (B, S, d_in) precomputed frame features -> (B, S, D)."""
-    return _mm(feats, p["proj"])
+    """feats: (B, S, d_in) precomputed frame features -> (B, S, D).  On a
+    mesh the output's gradient is taken at its own placements: the
+    backward's norms may hand it back split along the sequence, and the
+    product's backward flattens (B, S) into one dim."""
+    return dctx.grad_as_input(_mm(feats, p["proj"]))
 
 
 def vision_connector_init(gen, d_vis, d_model, dtype=torch.bfloat16):

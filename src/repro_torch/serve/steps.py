@@ -8,7 +8,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed import context as dctx
-from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 
@@ -17,9 +16,9 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int):
     def prefill_step(params, tokens):
         """tokens: (B, S) -> (logits of the last position, caches)."""
         b, _ = tokens.shape
-        caches = lm.make_caches(cfg, b, cache_len, device=tokens.device)
-        if dctx.is_sharded(tokens):
-            caches = shd.place_caches(caches, tokens.device_mesh)
+        mesh = tokens.device_mesh if dctx.is_sharded(tokens) else None
+        caches = lm.make_caches(cfg, b, cache_len, device=tokens.device,
+                                mesh=mesh)
         logits, caches, _ = lm.forward(
             params, cfg, {"tokens": tokens}, caches=caches, cache_index=0)
         return logits[:, -1, :], caches
@@ -32,7 +31,11 @@ def make_decode_step(cfg: ArchConfig):
         logits, caches, _ = lm.forward(
             params, cfg, {"tokens": tokens}, caches=caches,
             cache_index=cache_index)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # on a mesh the vocab is made whole first: DTensor's argmax over a
+        # split dim reads its shards' offsets back from a tensor, which a
+        # fake tensor (the dry run) cannot give
+        last = dctx.batch_only(logits[:, -1, :])
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], caches
     return decode_step
 

@@ -74,8 +74,7 @@ def unbucketize(bucketed: torch.Tensor, dest: torch.Tensor,
     r = torch.where(kept, rank, 0).long()
     out = bucketed[d, r]
     mask = kept.reshape(kept.shape + (1,) * (out.dim() - 1))
-    return torch.where(mask, out, torch.as_tensor(fill, dtype=out.dtype,
-                                                  device=out.device))
+    return torch.where(mask, out, fill)
 
 
 def steal_overflow(dest: torch.Tensor, load: torch.Tensor,

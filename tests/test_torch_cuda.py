@@ -103,6 +103,45 @@ def test_cuda_group_matmul_matches_plain(cuda_device, dtype, tiles, tile_m,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_matmul_operator(cuda_device, dtype):
+    """``torch.ops.repro_torch.group_matmul`` on CUDA tensors launches the
+    kernel once (the launch count grows by one) and matches the plain
+    version at the kernel tests' tolerances; on fake tensors of the same
+    shapes it launches nothing and gives the real result's shape, dtype
+    and device, and the dry run's counter gives the real launch and the
+    fake call the same FLOPs (the formula's 2 t d f) and eager bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import roofline as rl
+    rng = np.random.default_rng(7)
+    tiles, tile_m, d, f, e = 6, 16, 96, 80, 3
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)), dtype=dtype,
+                        device=cuda_device)
+    eid = torch.as_tensor(rng.integers(0, e, tiles), dtype=torch.int32,
+                          device=cuda_device)
+    before = group_matmul.launches
+    with rl.Counter() as real:
+        got = torch.ops.repro_torch.group_matmul(x, eid, w, tile_m)
+    torch.cuda.synchronize()
+    assert group_matmul.launches == before + 1
+    torch.testing.assert_close(
+        got, group_matmul_plain(x, eid, w, tile_m=tile_m), rtol=tol,
+        atol=tol)
+    with FakeTensorMode() as mode:
+        fx, feid, fw = (mode.from_tensor(t) for t in (x, eid, w))
+        with rl.Counter() as fake:
+            out = torch.ops.repro_torch.group_matmul(fx, feid, fw, tile_m)
+    assert group_matmul.launches == before + 1
+    assert (out.shape, out.dtype, out.device) == (got.shape, got.dtype,
+                                                  got.device)
+    assert real.flops == fake.flops == 2 * tiles * tile_m * d * f
+    assert real.bytes == fake.bytes > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,f", [(4096, 6400), (6400, 4096)])
 def test_cuda_group_matmul_serving_decode_shape(cuda_device, d, f):
     """The serving path's decode-step expert products (Phi-3.5-MoE: 16
