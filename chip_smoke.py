@@ -38,7 +38,20 @@ Phases (any failure raises and the script exits non-zero):
    ``src/repro_torch/golden/service.json`` bit for bit, the deadline
    lane must freeze exactly at its bound with the reference's frozen
    record, both a transient and a kill must have fired, and the clean
-   soak must have run on one cached engine;
+   soak must have run on one cached engine.  After the kernel legs, the
+   paper-figure drivers (``[figures]``, :func:`run_figures`): grid A's
+   rows from this phase's run (not run again) with the host CGRA and
+   systolic models through ``harness.build_table``, then the Figs. 11-14
+   and Table 2 formatters, each dict and printed text equal to the same
+   formatter's over the table of ``paper_grid.json``'s grid A records
+   (the headline ratios printed); Fig. 16's simulated sparsity axis
+   (SpMSpM n = 24 at 0.30 / 0.60 / 0.85 on 4x4, one packed sweep) and
+   ``fabric_autotune("bfs")`` over the five ``FABRIC_SIZES``, both equal
+   to the reference's records in ``src/repro_torch/golden/bench_drivers
+   .json``; and ``repro_torch.bench.bench_ci --skip-fig17`` (the smoke
+   grid against ``golden/bench_smoke.json``, the shard leg, one cached
+   engine, the static cost model's correlation, the smoke service and the
+   128-node pointer chase on both engines), which must exit 0;
 4. the serving path, launch counts again from 0: Phi-3.5-MoE at full
    width (d 4096, 32/8 heads of 128, 16 experts top-2 of 6400, vocab
    32064), depth cut to 4 layers, bf16 parameters from a seeded
@@ -220,7 +233,9 @@ is not available.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -239,6 +254,10 @@ import torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.bench import golden, harness, multidevice  # noqa: E402
 from repro_torch.bench import chaos_soak, serve_bench  # noqa: E402
+from repro_torch.bench import (bench_ci, fig11_performance,  # noqa: E402
+                               fig12_perf_watt, fig13_utilization,
+                               fig14_congestion, fig16_bandwidth,
+                               hillclimb, table2_efficiency)
 from repro_torch.bench import dryrun_check  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
@@ -463,11 +482,13 @@ def library_ms(fn, reps: int = 21, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def run_grids() -> dict:
-    """Grids A and B on the card, held to the golden records."""
+def run_grids() -> tuple[dict, tuple]:
+    """Grids A and B on the card, held to the golden records.  Returns the
+    stats and grid A's ``(lanes, wall)``."""
     want = golden.load_golden()
     all_wls = make_all()
     stats = {}
+    kept = {}
     for name, spec in golden.GRIDS.items():
         wls = golden.grid_workloads(spec, all_wls)
         torch.cuda.reset_peak_memory_stats()
@@ -478,6 +499,7 @@ def run_grids() -> dict:
         got = {golden.lane_key(ln.workload.name, ln.mode, ln.size):
                golden.lane_record(ln.result) for ln in lanes}
         golden.check_lanes(got, want[name]["lanes"])
+        kept[name] = lanes, wall
         cycles = [ln.result.cycles for ln in lanes]
         # one engine call over every lane, each padded to the widest mesh
         rows = len(lanes) * max(int(np.prod(ln.size or (4, 4)))
@@ -491,6 +513,85 @@ def run_grids() -> dict:
             peak_mem_bytes=torch.cuda.max_memory_allocated())
         print(f"[sim] {name}: {len(lanes)} lanes match the golden records; "
               f"{json.dumps(stats[name])}", flush=True)
+    return stats, kept["grid_a"]
+
+
+#: the ``[figures]`` formatters over the Figs. 11-14 table
+FIGURES = {"fig11": fig11_performance, "fig12": fig12_perf_watt,
+           "fig13": fig13_utilization, "fig14": fig14_congestion,
+           "table2": table2_efficiency}
+
+
+def _quiet(fn, *args, **kw):
+    """``fn``'s result and the text it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def run_figures(grid_a: tuple, device="cuda") -> dict:
+    """The paper-figure drivers on the card: the Figs. 11-14 and Table 2
+    formatters over grid A's rows (held to the same formatters over the
+    reference's records), Fig. 16's simulated axis and the fabric
+    autotuner (held to ``bench_drivers.json``), and ``bench_ci
+    --skip-fig17`` (its gates, exit 0)."""
+    lanes, wall = grid_a
+    wls = make_all()
+    t0 = time.time()
+    card = harness.build_table(wls, harness.grid_table(lanes, wall),
+                               verbose=False)
+    ref = harness.build_table(wls, golden.grid_rows(
+        golden.load_golden()["grid_a"]["lanes"], wls,
+        list(machine.FABRIC_MODES)), verbose=False)
+    figures = {}
+    for name, mod in FIGURES.items():
+        got, got_text = _quiet(mod.main, card)
+        want, want_text = _quiet(mod.main, ref)
+        if got != want or got_text != want_text:
+            raise AssertionError(f"[figures] {name} differs from the "
+                                 f"reference's records: {got} vs {want}")
+        figures.update(got)
+    stats = dict(figures=figures, table_s=time.time() - t0)
+    print(f"[figures] Figs. 11-14 and Table 2 from the card's grid A equal "
+          f"the reference's records: {json.dumps(figures)}", flush=True)
+
+    want = golden.load_bench_drivers_golden()
+    t0 = time.time()
+    f16 = fig16_bandwidth.simulate_sparsity_axis(device=device)
+    stats["fig16_s"] = time.time() - t0
+    golden.check_bench_drivers(golden.fig16_record(f16), None, want)
+    t0 = time.time()
+    tuned = hillclimb.fabric_autotune("bfs", save=False, device=device)
+    stats["autotune_s"] = time.time() - t0
+    golden.check_bench_drivers(None, golden.autotune_record(tuned), want)
+    stats.update(
+        fig16_cycles={f"{sp:.2f}": r["cycles"] for sp, r in f16.items()},
+        autotune_best=[tuned["best_latency"], tuned["best_efficiency"]],
+        autotune_waves=tuned["pack_stats"]["n_waves"])
+    print(f"[figures] Fig. 16's simulated axis ({stats['fig16_s']:.1f} s) "
+          f"and the bfs autotune ({stats['autotune_s']:.1f} s) equal "
+          "bench_drivers.json", flush=True)
+
+    out = os.path.join(HERE, "experiments", "ci_torch")
+    t0 = time.time()
+    rc = bench_ci.main(["--skip-fig17", "--out", out, "--device",
+                        str(device)])
+    stats["bench_ci_s"] = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"[figures] bench_ci --skip-fig17 exited {rc}")
+    with open(os.path.join(out, "BENCH_fig11.json")) as f:
+        smoke = json.load(f)
+    stats["bench_ci"] = dict(
+        wall_s=smoke["wall_s"], wall_shard_s=smoke["wall_shard_s"],
+        n_devices=smoke["n_devices"],
+        engine_cache_size=smoke["engine_cache_size"],
+        rank_corr=smoke["static_cost"]["rank_corr"],
+        service_speedup=smoke["service"]["speedup"],
+        chain_smoke_speedup=smoke["fast_forward"]["speedup"],
+        chain_smoke_dead_step_fraction=smoke["fast_forward"][
+            "dead_step_fraction"])
+    print(f"[figures] {json.dumps(stats)}", flush=True)
     return stats
 
 
@@ -2166,7 +2267,7 @@ def main() -> int:
     # --- the simulator and kernel-leg path, launch counts from zero ----------
     for meta in KERNELS.values():
         meta["wrapper"].launches = 0
-    sim = run_grids()
+    sim, grid_a = run_grids()
     sim["sweeps"] = run_sweeps()
     sim["service"] = run_service()
     errs = bench_kernels.main(device="cuda")
@@ -2176,6 +2277,12 @@ def main() -> int:
     for n, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{n} was not launched on the legs' path")
+
+    # --- the paper-figure drivers over grid A's rows ------------------------
+    t_fig = time.time()
+    figures = run_figures(grid_a)
+    del grid_a
+    print(f"[figures] phase {time.time() - t_fig:.1f} s", flush=True)
 
     # --- the serving path, launch counts from zero ---------------------------
     served, calls = run_serve()
@@ -2298,7 +2405,7 @@ def main() -> int:
                 "choices_compared")} for key, v in (
                     ("serve", mesh_served), ("deepseek", mesh_deepseek))},
             "reduced": mesh_reduced, "families": mesh_families},
-        "dryrun": dry}))
+        "dryrun": dry, "figures": figures}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

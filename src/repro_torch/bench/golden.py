@@ -77,6 +77,20 @@ each from :func:`serve_params_numpy`'s parameters on one numpy-seeded
 batch (:func:`train_family_batch`) passed at every step: each step's loss,
 aux loss and gradient norm.  :func:`train_family_run` makes the port's
 run, and :func:`check_train` holds it to the record.
+
+**The benchmark-CI smoke grid** (``golden/bench_smoke.json``): a byte
+copy of the reference's ``benchmarks/golden/bench_smoke.json``, the
+smoke grid's cycles per (workload, mode) that
+``repro_torch.bench.bench_ci`` gates on (:func:`load_bench_smoke`).  It is
+the reference's record: nothing of the port rewrites it.
+
+**The benchmark drivers** (``golden/bench_drivers.json``): the reference's
+``fig16_bandwidth.simulate_sparsity_axis()`` at its defaults (SpMSpM
+n = 24 at sparsities 0.30 / 0.60 / 0.85 on 4x4, one packed sweep) and
+its ``hillclimb.fabric_autotune("bfs")`` over all five ``FABRIC_SIZES``
+(:data:`BENCH_DRIVERS`), as :func:`fig16_record` and
+:func:`autotune_record` reduce them; :func:`check_bench_drivers` holds the
+port's runs to it.
 """
 from __future__ import annotations
 
@@ -140,6 +154,16 @@ FAMILIES_SPEC = dict(
 #: CPU tests' f32 tolerance
 FAMILIES_TOL = 1e-4
 MAX_CYCLES = 400_000
+BENCH_SMOKE_PATH = os.path.join(GOLDEN_DIR, "bench_smoke.json")
+BENCH_DRIVERS_PATH = os.path.join(GOLDEN_DIR, "bench_drivers.json")
+#: the benchmark drivers' runs in ``bench_drivers.json``: Fig. 16's
+#: simulated sparsity axis and the fabric autotuner, at the arguments the
+#: card runs them with (the functions' defaults)
+BENCH_DRIVERS = dict(
+    fig16=dict(n=24, seed=13, sparsities=[0.30, 0.60, 0.85],
+               mem_words=4096),
+    autotune=dict(workload="bfs",
+                  sizes=[[2, 2], [2, 4], [4, 4], [4, 8], [8, 8]]))
 
 #: name -> (workload names or None for all, modes or None for all, sizes)
 GRIDS = {
@@ -399,6 +423,18 @@ def lane_record(res) -> dict:
 def lane_key(workload: str, mode, size) -> str:
     at = "" if size is None else f"@{size[0]}x{size[1]}"
     return f"{workload}/{mode}{at}"
+
+
+def grid_rows(lanes: dict, wls: list, modes) -> dict:
+    """The ``run_grid`` table ``{mode: [row per workload]}`` of a
+    sizeless grid's records (``lanes``, keyed by :func:`lane_key`): each
+    row the record's ``RunResult.to_json()`` fields, with a
+    ``batch_wall_s`` of 0 (a record has no wall)."""
+    extra = ("stall_per_pe_port", "mem_shape", "mem_sha256")
+    return {mode: [dict({k: v for k, v in
+                         lanes[lane_key(w.name, mode, None)].items()
+                         if k not in extra}, batch_wall_s=0.0)
+                   for w in wls] for mode in modes}
 
 
 def load_golden(path: str = GOLDEN_PATH) -> dict:
@@ -705,3 +741,43 @@ def train_rel_errs(losses, aux_losses, grad_norms, want: dict) -> dict:
     got = dict(loss=losses, aux_loss=aux_losses, grad_norm=grad_norms)
     return {k: max((rel(g, r) for g, r in zip(vals, want[k])), default=0.0)
             for k, vals in got.items()}
+
+
+def load_bench_smoke(path: str = BENCH_SMOKE_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def fig16_record(out: dict) -> dict:
+    """``simulate_sparsity_axis``'s result with its sparsity keys as
+    strings (JSON's keys)."""
+    return {f"{sp:.2f}": dict(row) for sp, row in out.items()}
+
+
+def autotune_record(rec: dict) -> dict:
+    """The parts of a ``fabric_autotune`` record that a run determines
+    (the engine cache's size depends on what ran before it)."""
+    return {k: rec[k] for k in ("workload", "table", "best_latency",
+                                "best_efficiency", "packed", "pack_stats")}
+
+
+def load_bench_drivers_golden(path: str = BENCH_DRIVERS_PATH) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_bench_drivers(fig16: dict | None, autotune: dict | None,
+                        want: dict) -> None:
+    """Raise unless the records of :func:`fig16_record` and
+    :func:`autotune_record` (either may be None: not checked) equal the
+    golden's, field for field."""
+    for name, got in (("fig16", fig16), ("autotune", autotune)):
+        if got is None:
+            continue
+        # a JSON round trip: tuples become lists, as in the file
+        got = json.loads(json.dumps(got))
+        if got != want[name]["record"]:
+            diff = {k: (got.get(k), v) for k, v in want[name]["record"].items()
+                    if got.get(k) != v}
+            raise AssertionError(f"{name} differs from the reference's "
+                                 f"record: {diff}")

@@ -55,7 +55,16 @@ def test_imports_pull_in_no_jax_and_no_reference():
               "repro_torch.launch.sparse_dispatch",
               "repro_torch.bench.multidevice", "repro_torch.distributed",
               "repro_torch.distributed.sharding",
-              "repro_torch.distributed.context"):
+              "repro_torch.distributed.context",
+              "repro_torch.bench.harness",
+              "repro_torch.bench.fig11_performance",
+              "repro_torch.bench.fig12_perf_watt",
+              "repro_torch.bench.fig13_utilization",
+              "repro_torch.bench.fig14_congestion",
+              "repro_torch.bench.table2_efficiency",
+              "repro_torch.bench.fig16_bandwidth",
+              "repro_torch.bench.hillclimb", "repro_torch.bench.roofline",
+              "repro_torch.bench.run", "repro_torch.bench.bench_ci"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -133,6 +142,12 @@ def test_no_function_defaults_to_the_cpu():
               "repro_torch.core.machine.shard_devices",
               "repro_torch.core.sweep.sweep",
               "repro_torch.bench.fig17.run_grid_report",
+              "repro_torch.bench.fig17.main",
+              "repro_torch.bench.harness.run_grid_report",
+              "repro_torch.bench.harness.run_all",
+              "repro_torch.bench.fig16_bandwidth.simulate_sparsity_axis",
+              "repro_torch.bench.hillclimb.fabric_autotune",
+              "repro_torch.bench.bench_ci.run_smoke",
               "repro_torch.checkpoint.store.restore_checkpoint",
               "repro_torch.launch.mesh.device_mesh"):
         assert f in seen, f
