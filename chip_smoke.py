@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    (``src/repro_torch/golden/paper_grid.json``) bit for bit, each leg must
    agree with its kernel's plain PyTorch version (rtol = atol = 1e-4 in
    f32, 2e-2 in bf16), and each of the three kernels must have been
-   launched.  Between the grids and the kernel legs, the ``[sweep]``
+   launched; then ``group_matmul``'s tensor-core shape on integer-valued
+   bf16 operands (``bench.kernels.tc_exact``: tile_m 17 to 130, sums exact
+   in f32), with w as stored and transposed, must equal the plain version
+   bit for bit.  Between the grids and the kernel legs, the ``[sweep]``
    legs run through ``repro_torch.core.sweep.sweep(..., device="cuda")``
    and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
    for bit, the packing schedule and the engine telemetry field for
@@ -210,7 +213,9 @@ Phases (any failure raises and the script exits non-zero):
    the training shapes, whose plain version takes tens of ms), at the
    f32 legs' shapes and, for ``group_matmul``, also at the serving
    paths' decode and prefill shapes and the training paths' forward and
-   dx shapes; compute each kernel's bound from the bytes and FLOPs its
+   dx shapes (the dx as the training path runs it: one transposed
+   product reading ``w`` in place), each with the CTA shape the launcher
+   took (``cta_shape``); compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
 14. print the kernels line (a row per leg with the legs' launches,
@@ -275,7 +280,8 @@ from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
-from repro_torch.kernels.group_matmul import tile_by_expert  # noqa: E402
+from repro_torch.kernels.group_matmul import (  # noqa: E402
+    expert_product, launch_shape, tile_by_expert)
 from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
@@ -709,13 +715,15 @@ def run_service() -> dict:
     return row
 
 
-def plain_grouped(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``grouped_expert_matmul`` through the plain version: the same
-    capacity padding and tiles, then :func:`group_matmul_plain`."""
+def plain_grouped(xe: torch.Tensor, w: torch.Tensor, *,
+                  trans_w: bool = False) -> torch.Tensor:
+    """``grouped_expert_matmul`` (``trans_w``: its dx's product) through
+    the plain version: the same capacity padding and tiles, then
+    :func:`group_matmul_plain`."""
     e, c, _ = xe.shape
     x, eid, tile_m = tile_by_expert(xe)
-    out = group_matmul_plain(x, eid, w, tile_m=tile_m)
-    return out.reshape(e, -1, w.shape[2])[:, :c]
+    out = group_matmul_plain(x, eid, w, tile_m=tile_m, trans_w=trans_w)
+    return out.reshape(e, -1, w.shape[1 if trans_w else 2])[:, :c]
 
 
 def check_expert(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -2128,9 +2136,10 @@ def training_shape_times(stats: dict, calls: dict,
     padded to 256, 4096 <-> 6400; ``group_matmul_deepseek_train``:
     DeepSeek-V2-Lite, 64 experts, 2048 <-> 1408), forward ``wg`` in the
     row's own keys and ``wo`` beside it, and the backward's dx (``dy @
-    w^T`` on the contiguous transposed copy, whose own time is
-    ``transpose_ms``) for both; launches (a step beside the leg's) and max
-    |err| are the training path's."""
+    w^T``, one ``trans_w`` launch as the training path runs it, ``w`` read
+    in place) for both; each with the CTA shape the launcher took
+    (``cta_shape``); launches (a step beside the leg's) and max |err| are
+    the training path's."""
     meta = KERNELS["group_matmul"]
     first = 3 * stats["n_layers"] * TRAIN_RECORD_STEP
     fwd, dx = {}, {}
@@ -2139,11 +2148,8 @@ def training_shape_times(stats: dict, calls: dict,
         r = calls[n]
         w = r["w"]
         fwd[tag] = expert_shape_times(r["xe"], w, **few)
-        wt = w.transpose(1, 2).contiguous()
-        dx[tag] = expert_shape_times(r["dy"].to(w.dtype), wt, **few)
-        dx[tag]["transpose_ms"] = library_ms(
-            lambda: w.transpose(1, 2).contiguous(), 7, 3)
-        del wt
+        dx[tag] = expert_shape_times(r["dy"].to(w.dtype), w, trans_w=True,
+                                     **few)
     errs = stats["max_abs_err"]
     rows = []
     for row, times, kind, count in (
@@ -2171,22 +2177,28 @@ def shares(row: dict) -> dict:
 
 @torch.inference_mode()
 def expert_shape_times(xe: torch.Tensor, w: torch.Tensor, *,
-                       reps: int = 21, plain_reps: int = 21,
-                       inner: int = 10) -> dict:
-    """``grouped_expert_matmul(xe, w)`` (the kernel), its plain version and
-    ``torch.bmm`` timed on the given operands, beside the bound of the rows
-    the call needs (``c`` real rows, whatever the tiles pad)."""
+                       trans_w: bool = False, reps: int = 21,
+                       plain_reps: int = 21, inner: int = 10) -> dict:
+    """``grouped_expert_matmul(xe, w)``'s product (``trans_w``: its dx's,
+    ``xe @ w^T``) on the kernel, its plain version and ``torch.bmm`` timed
+    on the given operands, beside the bound of the rows the call needs
+    (``c`` real rows, whatever the tiles pad) and the CTA shape the
+    launcher took."""
     e, c, d = xe.shape
-    f = w.shape[2]
+    f = w.shape[1] if trans_w else w.shape[2]
     nbytes = (e * c * d + e * d * f) * w.element_size() + e * c * f * 4
     flops = 2 * e * c * d * f
+    wb = w.transpose(1, 2) if trans_w else w
+    x, _, tile_m = tile_by_expert(xe)
     return shares(dict(
         shape=[e, c, d, f],
-        ms=time_ms(lambda: moe.grouped_expert_matmul(xe, w), reps, inner),
-        plain_ms=time_ms(lambda: plain_grouped(xe, w), plain_reps,
-                         1 if plain_reps < reps else inner),
+        cta_shape=launch_shape(x, w, tile_m=tile_m, trans_w=trans_w),
+        ms=time_ms(lambda: expert_product(xe, w, trans_w=trans_w), reps,
+                   inner),
+        plain_ms=time_ms(lambda: plain_grouped(xe, w, trans_w=trans_w),
+                         plain_reps, 1 if plain_reps < reps else inner),
         **bound(nbytes, flops, w.dtype),
-        library_ms=library_ms(lambda: torch.bmm(xe, w), reps, inner),
+        library_ms=library_ms(lambda: torch.bmm(xe, wb), reps, inner),
         bytes=nbytes, flops=flops))
 
 
@@ -2277,6 +2289,11 @@ def main() -> int:
     for n, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{n} was not launched on the legs' path")
+    exact = bench_kernels.tc_exact("cuda")
+    torch.cuda.synchronize()
+    print(f"[kernel] group_matmul's tensor-core shape equals the exact sums "
+          f"bit for bit, w as stored and transposed: {json.dumps(exact)}",
+          flush=True)
 
     # --- the paper-figure drivers over grid A's rows ------------------------
     t_fig = time.time()

@@ -18,6 +18,10 @@ leg runs the kernel wrapper and holds it against the plain version on
 the same inputs (rtol = atol = 1e-4 for f32, as the reference; 2e-2 for
 bf16, as its kernel tests); the f32 ``bcsr_spmm`` leg is also held to
 the scale layer's oracle, ``repro_torch.sparse.ops.bcsr_spmm``.
+
+:func:`tc_exact` holds ``group_matmul``'s tensor-core shape to its plain
+version bit for bit, in both layouts of ``w``, on integer-valued bf16
+operands whose sums are exact in f32 (:data:`TC_EXACT_CASES`).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.kernels import (bcsr_spmm, bcsr_spmm_plain, group_matmul,
                                  group_matmul_plain, sddmm_blocks,
                                  sddmm_blocks_plain)
+from repro_torch.kernels.group_matmul import launch_shape
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.formats import BCSR
 
@@ -163,4 +168,46 @@ def main(device="cuda", dtypes=(torch.float32, torch.bfloat16),
                         f"bcsr_spmm {dtype}: max |err| {err} from the "
                         f"sparse.ops oracle over tolerance {tol}")
                 out[name]["oracle_float32"] = err
+    return out
+
+
+#: tensor-core cases of the integer-exact check: tiles, tile_m, d, f,
+#: experts.  tile_m 17 to 130 (one 64-row block with rows masked, two
+#: 64-row halves of a 128-row block, a tile of two row blocks), d and f
+#: multiples of 8 but not of 64 and not of the 256-column block, d up to
+#: 1024 (|x|, |w| <= 8: every partial sum an integer under 2^24, exact in
+#: f32 in any order); the expert ids change from tile to tile.
+TC_EXACT_CASES = ((4, 128, 512, 384, 3), (6, 60, 256, 264, 4),
+                  (5, 17, 136, 200, 3), (3, 130, 200, 136, 2),
+                  (4, 64, 1024, 520, 2), (2, 32, 64, 8, 2))
+
+
+def tc_exact(device="cuda", seed: int = 0, cases=TC_EXACT_CASES) -> dict:
+    """``group_matmul`` on the tensor-core shape against the plain version
+    in both layouts of ``w`` (as stored, and transposed and read in place)
+    on integer-valued bf16 operands: the two must be equal bit for bit
+    (raises otherwise).  Returns ``{case: shape launched}``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for tiles, tile_m, d, f, e in cases:
+        def ints(*shape):
+            return torch.as_tensor(rng.integers(-8, 9, shape),
+                                   dtype=torch.bfloat16, device=device)
+        x = ints(tiles * tile_m, d)
+        eid = torch.as_tensor(np.arange(tiles) * 7 % e, dtype=torch.int32,
+                              device=device)
+        for trans_w, w in ((False, ints(e, d, f)), (True, ints(e, f, d))):
+            name = f"t{tile_m}-d{d}-f{f}-{'wt' if trans_w else 'w'}"
+            shape = launch_shape(x, w, tile_m=tile_m, trans_w=trans_w)
+            got = group_matmul(x, eid, w, tile_m=tile_m, trans_w=trans_w)
+            want = group_matmul_plain(x, eid, w, tile_m=tile_m,
+                                      trans_w=trans_w)
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()
+                raise AssertionError(
+                    f"group_matmul {name} ({shape}): {len(bad)} of "
+                    f"{got.numel()} outputs differ from the exact sums, "
+                    f"first at {bad[0].tolist()}: {got[tuple(bad[0])]} "
+                    f"against {want[tuple(bad[0])]}")
+            out[name] = shape
     return out

@@ -3,8 +3,12 @@
     PYTHONPATH=src python -m repro_torch.bench.profile_kernels [--reps 20]
 
 Profiles ``group_matmul`` at the f32 benchmark leg (the 128 x 128 tile
-core) and at the serving path's decode shape (the bf16 weight stream,
-16 experts, 4096 -> 6400, tile_m 8), ``sddmm`` at its f32 leg
+core), at the serving path's decode shape (the bf16 weight stream,
+16 experts, 4096 -> 6400, tile_m 8) and at the training shapes of
+Phi-3.5-MoE (16 experts x 256 rows, 160 of them tokens, tile_m 128,
+4096 -> 6400) and DeepSeek-V2-Lite (64 experts x 60 rows, tile_m 60,
+2048 -> 1408), forward and dx (``trans_w``), on the tensor-core shape;
+``sddmm`` at its f32 leg
 (128 x 64 tiles) and ``bcsr_spmm`` at its f32 leg (128 x 64 tiles, each
 row's contraction split over a cluster of ``split`` ranks), and prints
 one JSON line per kernel:
@@ -14,11 +18,17 @@ one JSON line per kernel:
 * ``launch``: what the profiler records of the kernel's launch (grid,
   block, registers per thread, shared memory, blocks and warps per SM,
   estimated achieved occupancy);
-* ``no_loads_ms`` (the tile-core kernels): the same sources built
-  with the tile core's global loads replaced by constants, so that the
-  shared-memory and FMA loop runs alone.  That loop is the floor the
-  kernel cannot go below without a new inner loop; ``ms - no_loads_ms``
-  is what waiting on the loads costs.
+* ``no_loads_ms`` (the tile-core and tensor-core kernels): the same
+  sources built with the tile core's global loads replaced by constants
+  and, with ``-DGM_TC_NO_LOADS``, the tensor-core shape's TMA loads left
+  out (each stage's barrier released at once, the products run on what
+  shared memory holds), so that the inner loop and the stores run alone.
+  That is the floor the kernel cannot go below without a new inner loop;
+  ``ms - no_loads_ms`` is what waiting on the loads costs.
+* the training rows also: ``cta_shape``, ``bound_ms`` / ``bound_by``
+  (the bytes and FLOPs of the 160 or 60 token rows, as ``chip_smoke.py``
+  counts them), ``bound_share`` (bound_ms / ms) and ``math_ms``, the
+  padded rows' FLOPs at the card's bf16 peak (989 TFLOP/s).
 * ``bcsr_spmm`` also: ``split`` (the wrapper's choice, the launch's
   cluster size), ``ms_by_split`` (the time at each split of 1, 2, 4 and
   8, each with its no-loads floor and its ``phases``) and ``empty_ms``
@@ -48,6 +58,14 @@ from repro_torch.bench import kernels as bench_kernels
 from repro_torch.kernels import _build, bcsr_spmm, group_matmul
 from repro_torch.kernels.bcsr_spmm import (MAX_SPLIT, TILE_M, TILE_N,
                                            launch_split)
+from repro_torch.kernels.group_matmul import launch_shape
+
+#: the training shapes: experts, capacity slots (padded), token rows,
+#: d, f; tile_m = min(128, slots)
+TRAIN_SHAPES = {"group_matmul_train": (16, 256, 160, 4096, 6400),
+                "group_matmul_deepseek_train": (64, 60, 60, 2048, 1408)}
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 #: the tile core's fetch, and what the no-loads build puts in its place
 FETCH = "constexpr bool full = decltype(flag)::value;"
@@ -131,7 +149,17 @@ def build_no_loads() -> dict:
         f.write(header.replace(FETCH, NO_LOADS))
     return _build_copies("no_loads", {
         name: _source(f"{name}.cu")
-        for name in ("group_matmul", "sddmm", "bcsr_spmm")})
+        for name in ("group_matmul", "sddmm", "bcsr_spmm")},
+        (f"-I{_build.CSRC}",))
+
+
+def build_tc_no_loads():
+    """``group_matmul.cu`` built with ``-DGM_TC_NO_LOADS``: the
+    tensor-core shape's loading thread issues no TMA load."""
+    return _build_copies("tc_no_loads",
+                         {"group_matmul": _source("group_matmul.cu")},
+                         ("-DGM_TC_NO_LOADS", f"-I{_build.CSRC}")
+                         )["group_matmul"]
 
 
 def build_phases():
@@ -182,6 +210,71 @@ def _entry(lib, symbol: str, n_ptrs: int, n_ints: int):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def training_operands(name: str, gen: torch.Generator) -> dict:
+    """bf16 operands at a training shape: x with its padding rows zero,
+    ``w`` (e, d, f), the dx's cotangent (e x slots, f), the expert ids."""
+    e, slots, rows, d, f = TRAIN_SHAPES[name]
+    x = torch.zeros((e, slots, d), device="cuda", dtype=torch.bfloat16)
+    x[:, :rows] = torch.randn((e, rows, d), generator=gen, device="cuda")
+    dy = torch.zeros((e, slots, f), device="cuda", dtype=torch.bfloat16)
+    dy[:, :rows] = torch.randn((e, rows, f), generator=gen, device="cuda")
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tile_m = min(128, slots)
+    eid = torch.arange(e, dtype=torch.int32, device="cuda"
+                       ).repeat_interleave(slots // tile_m)
+    return dict(x=x.reshape(e * slots, d), dy=dy.reshape(e * slots, f),
+                w=w, eid=eid, tile_m=tile_m)
+
+
+def training_bound(name: str, trans_w: bool) -> dict:
+    """The least time of a training call's token rows (bytes over HBM's
+    rate against FLOPs over the bf16 peak), and the padded rows' FLOPs at
+    that peak."""
+    e, slots, rows, d, f = TRAIN_SHAPES[name]
+    k, n = (f, d) if trans_w else (d, f)
+    nbytes = (e * rows * k + e * k * n) * 2 + e * rows * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * e * rows * k * n / PEAK_BF16_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                math_ms=2 * e * slots * k * n / PEAK_BF16_FLOPS * 1e3)
+
+
+def training_rows(gen: torch.Generator, stream: int, reps: int) -> list:
+    """The tensor-core shape at each training shape, forward and dx: the
+    profile of the kernel through the wrapper, its bound, and its
+    no-loads floor from :func:`build_tc_no_loads`."""
+    tc_fn = _entry(build_tc_no_loads(), "group_matmul_bf16", 4, 6)
+    rows = []
+    for name in TRAIN_SHAPES:
+        op = training_operands(name, gen)
+        for suffix, xin, tw in (("", op["x"], False), ("_dx", op["dy"], True)):
+            w, eid, tile_m = op["w"], op["eid"], op["tile_m"]
+            out = torch.empty((xin.shape[0], w.shape[1 if tw else 2]),
+                              device="cuda")
+
+            def floor(xin=xin, tw=tw, out=out):
+                _build.check_launch("group_matmul_bf16", tc_fn(
+                    xin.data_ptr(), eid.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), xin.shape[0] // tile_m, tile_m,
+                    xin.shape[1], out.shape[1], w.shape[0], int(tw), stream))
+            row = dict(
+                name=name + suffix,
+                shape=f"{'dx' if tw else 'forward'} wg, bf16, tile_m {tile_m}",
+                cta_shape=launch_shape(xin, w, tile_m=tile_m, trans_w=tw),
+                **training_bound(name, tw),
+                **kernel_profile(lambda xin=xin, tw=tw: group_matmul(
+                    xin, eid, w, tile_m=tile_m, trans_w=tw),
+                    "group_matmul_tc", reps))
+            row["no_loads_ms"] = kernel_profile(floor, "group_matmul_tc",
+                                                reps)["ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+        del op
+    return rows
 
 
 def main(argv=None) -> list:
@@ -235,7 +328,7 @@ def main(argv=None) -> list:
     t, d = gm["x"].shape
     n_exp, _, f = gm["w"].shape
     gm_out = torch.empty((t, f), device="cuda")
-    gm_fn = _entry(libs["group_matmul"], "group_matmul_f32", 4, 5)
+    gm_fn = _entry(libs["group_matmul"], "group_matmul_f32", 4, 6)
     sd_out = torch.empty((sd["brow"].numel(), sd["bm"], sd["bn"]),
                          device="cuda")
     sd_fn = _entry(libs["sddmm"], "sddmm_f32", 5, 6)
@@ -247,7 +340,8 @@ def main(argv=None) -> list:
         _build.check_launch("group_matmul_f32", gm_fn(
             gm["x"].data_ptr(), gm["eid"].data_ptr(), gm["w"].data_ptr(),
             gm_out.data_ptr(), t // gm["tile_m"], gm["tile_m"], d, f, n_exp,
-            stream))
+            0, stream))
+
 
     def sd_call():
         _build.check_launch("sddmm_f32", sd_fn(
@@ -278,12 +372,22 @@ def main(argv=None) -> list:
             phase_lib, lambda s=s: bc_call(phase_fn, s), tiles * s, n_sms)
     no_loads["bcsr_spmm"] = dict(ms=bc_row["ms_by_split"][str(split)][
         "no_loads_ms"])
-    card = torch.cuda.get_device_name(0)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
     for row in rows:
         if row["name"] in no_loads:
             row["no_loads_ms"] = no_loads[row["name"]]["ms"]
         row["device"] = card
         print(json.dumps(row), flush=True)
+    # last, so that the small kernels' sessions above run as they did
+    # before these rows existed
+    for row in training_rows(gen, stream, ns.reps):
+        row["device"] = card
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 

@@ -179,28 +179,47 @@ def test_cuda_group_matmul_errors(cuda_device):
 # Each case reaches one launch variant of csrc/group_matmul.cu by name: the
 # weight stream for tile_m <= 8 ("stream8") and <= 16 ("stream16") with the
 # wide (16- or 8-byte) weight loads when f allows them ("vec") or scalar
-# loads ("scalar"), and the 128 x 128 tiled shape for wider tiles.  The
-# expert ids are a pattern: "runs" puts equal ids on neighbouring tiles
+# loads ("scalar"); for wider bf16 tiles whose d and f are multiples of 8
+# the tensor-core shape, 64-row ("tc64", tile_m <= 64) or 128-row ("tc128")
+# blocks of one tile; for the other wide tiles (f32, or bf16 that the TMA
+# cannot take) the 128 x 128 tiled shape.  A last field True runs the case
+# with w transposed (trans_w, (e, f, d), read in place on the tensor-core
+# shape; "+copy": the operator's contiguous transposed copy elsewhere).
+# The expert ids are a pattern: "runs" puts equal ids on neighbouring tiles
 # (one run per CTA where a CTA spans several tiles), "mixed" a new id on
 # every tile, "bad" an out-of-range id in the middle of a run.
 GM_VARIANTS = [
-    # variant, dtype, tiles, tile_m, d, f, experts, ids
-    ("stream8_vec", torch.bfloat16, 5, 1, 64, 256, 3, "mixed"),
-    ("stream8_vec", torch.bfloat16, 4, 8, 4100, 512, 4, "mixed"),
-    ("stream8_vec", torch.float32, 3, 4, 1500, 132, 2, "mixed"),
-    ("stream8_scalar", torch.bfloat16, 4, 8, 4100, 130, 4, "mixed"),
-    ("stream8_scalar", torch.float32, 6, 8, 300, 9, 3, "bad"),
-    ("stream16_vec", torch.bfloat16, 3, 16, 4500, 260, 3, "mixed"),
-    ("stream16_vec", torch.float32, 2, 12, 2100, 64, 2, "bad"),
-    ("stream16_scalar", torch.bfloat16, 3, 16, 1000, 65, 2, "mixed"),
-    ("tiled_vec", torch.float32, 12, 24, 200, 256, 3, "runs"),
-    ("tiled_vec", torch.float32, 16, 32, 136, 260, 3, "mixed"),
-    ("tiled_vec", torch.bfloat16, 8, 32, 512, 384, 4, "runs"),
-    ("tiled_vec", torch.float32, 6, 64, 96, 128, 2, "bad"),
-    ("tiled_vec", torch.float32, 3, 128, 1024, 200, 2, "mixed"),
-    ("tiled_scalar", torch.float32, 8, 32, 33, 65, 3, "runs"),
-    ("tiled_scalar", torch.bfloat16, 5, 24, 130, 72, 2, "bad"),
-]
+    # variant, dtype, tiles, tile_m, d, f, experts, ids, trans_w
+    ("stream8_vec", torch.bfloat16, 5, 1, 64, 256, 3, "mixed", False),
+    ("stream8_vec", torch.bfloat16, 4, 8, 4100, 512, 4, "mixed", False),
+    ("stream8_vec", torch.float32, 3, 4, 1500, 132, 2, "mixed", False),
+    ("stream8_scalar", torch.bfloat16, 4, 8, 4100, 130, 4, "mixed", False),
+    ("stream8_scalar", torch.float32, 6, 8, 300, 9, 3, "bad", False),
+    ("stream16_vec", torch.bfloat16, 3, 16, 4500, 260, 3, "mixed", False),
+    ("stream16_vec", torch.float32, 2, 12, 2100, 64, 2, "bad", False),
+    ("stream16_scalar", torch.bfloat16, 3, 16, 1000, 65, 2, "mixed", False),
+    ("tiled_vec", torch.float32, 12, 24, 200, 256, 3, "runs", False),
+    ("tiled_vec", torch.float32, 16, 32, 136, 260, 3, "mixed", False),
+    ("tiled_vec", torch.float32, 6, 64, 96, 128, 2, "bad", False),
+    ("tiled_vec", torch.float32, 3, 128, 1024, 200, 2, "mixed", False),
+    ("tiled_scalar", torch.float32, 8, 32, 33, 65, 3, "runs", False),
+    ("tiled_scalar", torch.bfloat16, 5, 24, 130, 72, 2, "bad", False),
+    ("tiled_vec", torch.bfloat16, 4, 60, 256, 132, 3, "mixed", False),
+    ("tiled_vec+copy", torch.float32, 4, 32, 96, 200, 3, "mixed", True),
+    ("tiled_vec+copy", torch.bfloat16, 4, 60, 256, 132, 3, "runs", True),
+] + [
+    (v, torch.bfloat16, *case, tw)
+    for v, *case in [
+        ("tc64", 8, 17, 200, 136, 3, "mixed"),
+        ("tc64", 8, 32, 512, 384, 4, "runs"),
+        ("tc64", 6, 60, 2048, 1408, 4, "mixed"),
+        ("tc64", 5, 60, 136, 200, 2, "bad"),
+        ("tc64", 4, 64, 200, 264, 3, "mixed"),
+        ("tc128", 6, 128, 1024, 520, 3, "runs"),
+        ("tc128", 4, 128, 200, 136, 2, "bad"),
+        ("tc128", 3, 130, 264, 200, 2, "mixed"),
+    ]
+    for tw in (False, True)]
 
 
 def _expert_ids(pattern, tiles, e, rng):
@@ -217,38 +236,52 @@ def _expert_ids(pattern, tiles, e, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "variant,dtype,tiles,tile_m,d,f,e,ids", GM_VARIANTS,
+    "variant,dtype,tiles,tile_m,d,f,e,ids,trans_w", GM_VARIANTS,
     ids=[f"{v[0]}-{str(v[1])[6:]}-t{v[3]}-d{v[4]}-f{v[5]}-{v[7]}"
-         for v in GM_VARIANTS])
+         + ("-wt" if v[8] else "") for v in GM_VARIANTS])
 def test_cuda_group_matmul_launch_variants(cuda_device, variant, dtype, tiles,
-                                           tile_m, d, f, e, ids):
+                                           tile_m, d, f, e, ids, trans_w):
     """Every launch variant of the grouped-matmul kernel against the plain
-    version: tile_m 1 to 128, aligned and unaligned f, d past the stream
+    version: tile_m 1 to 130, aligned and unaligned f, d past the stream
     shape's shared-memory slab of x (4096 bf16 / 1024 f32 rows at 8 rows,
-    2048 / 1024 at 16), tiles of one CTA with equal and with different
-    expert ids, and NaN rows for an out-of-range id; one launch a call."""
-    shape, _, load = variant.partition("_")
-    # the case reaches its variant: the launcher's choice, by shape
+    2048 / 1024 at 16), d and f multiples of 8 but not of the tensor-core
+    shape's 64-deep slice or 256-column block, tiles of one CTA with equal
+    and with different expert ids, NaN rows for an out-of-range id, and w
+    in both layouts; one launch a call."""
+    from repro_torch.kernels.group_matmul import launch_shape
+    shape, _, load = variant.removesuffix("+copy").partition("_")
+    # the case reaches its variant: the launcher's choice, by shape (d
+    # the contraction, f the output width in either layout)
+    tensor_cores = dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
     assert (tile_m <= 8 if shape == "stream8" else
-            8 < tile_m <= 16 if shape == "stream16" else tile_m > 16)
+            8 < tile_m <= 16 if shape == "stream16" else
+            16 < tile_m <= 64 and tensor_cores if shape == "tc64" else
+            tile_m > 64 and tensor_cores if shape == "tc128" else
+            tile_m > 16 and not tensor_cores)
     if shape == "tiled":
-        wide = d % 4 == 0 and f % 4 == 0
-    else:   # a lane's columns: 16 bytes, or 8 for bf16 at 16 rows
+        assert (d % 4 == 0 and f % 4 == 0) == (load == "vec")
+    elif shape.startswith("stream"):   # 16 bytes a lane, or 8 (bf16, R 16)
         wide = f % (8 if (shape, dtype) == ("stream8", torch.bfloat16)
                     else 4) == 0
-    assert wide == (load == "vec")
+        assert wide == (load == "vec")
+    assert variant.endswith("+copy") == (trans_w and
+                                         not shape.startswith("tc"))
     rng = np.random.default_rng(tiles * 1000 + tile_m + d + f)
     x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
                         dtype=dtype, device=cuda_device)
     # unit-variance outputs at every depth
-    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+    w = torch.as_tensor(rng.standard_normal((e, f, d) if trans_w else
+                                            (e, d, f)) / np.sqrt(d),
                         dtype=dtype, device=cuda_device)
     eid = torch.as_tensor(_expert_ids(ids, tiles, e, rng), device=cuda_device)
+    # ... and the C launcher takes it
+    assert launch_shape(x, w, tile_m=tile_m, trans_w=trans_w) == variant
     before = group_matmul.launches
-    got = group_matmul(x, eid, w, tile_m=tile_m)
+    got = group_matmul(x, eid, w, tile_m=tile_m, trans_w=trans_w)
     torch.cuda.synchronize()
     assert group_matmul.launches == before + 1
-    want = group_matmul_plain(x, eid, w, tile_m=tile_m)
+    assert got.shape == (tiles * tile_m, f)
+    want = group_matmul_plain(x, eid, w, tile_m=tile_m, trans_w=trans_w)
     bad = ((eid < 0) | (eid >= e)).repeat_interleave(tile_m)
     assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
     # f32: 1e-5 up to d = 128 as the reference kernel tests, 1e-4 past it
@@ -256,6 +289,42 @@ def test_cuda_group_matmul_launch_variants(cuda_device, variant, dtype, tiles,
     # the summation order differs, and 2e-2 is the reference's bf16 limit
     tol = (1e-5 if d <= 128 else 1e-4) if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", bench_kernels.TC_EXACT_CASES,
+                         ids=[f"t{c[1]}-d{c[2]}-f{c[3]}"
+                              for c in bench_kernels.TC_EXACT_CASES])
+def test_cuda_group_matmul_tensor_cores_exact(cuda_device, case):
+    """The tensor-core shape on integer-valued bf16 operands (|x|, |w| <=
+    8, d <= 1024: every sum exact in f32, in any order) equals the plain
+    version bit for bit with w as stored and transposed: a wrong fragment,
+    descriptor, swizzle or transpose moves some output by a whole unit."""
+    shapes = bench_kernels.tc_exact(cuda_device, cases=(case,))
+    assert len(shapes) == 2 and all(v in ("tc64", "tc128")
+                                    for v in shapes.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_m", [60, 128])
+def test_cuda_group_matmul_tensor_cores_repeat_bit_equal(cuda_device,
+                                                         tile_m):
+    """Two calls of the tensor-core shape on the same operands give the
+    same bits, in both layouts: its sums run in an order fixed by the
+    shapes (no atomics, no split of the contraction)."""
+    rng = np.random.default_rng(tile_m)
+    tiles, d, f, e = 6, 1024, 776, 3
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=torch.bfloat16, device=cuda_device)
+    eid = torch.as_tensor(rng.integers(0, e, tiles), dtype=torch.int32,
+                          device=cuda_device)
+    for shape in ((e, d, f), (e, f, d)):
+        w = torch.as_tensor(rng.standard_normal(shape) / np.sqrt(d),
+                            dtype=torch.bfloat16, device=cuda_device)
+        tw = shape[1] == f
+        first = group_matmul(x, eid, w, tile_m=tile_m, trans_w=tw)
+        assert torch.equal(first, group_matmul(x, eid, w, tile_m=tile_m,
+                                               trans_w=tw))
 
 
 @pytest.mark.cuda
