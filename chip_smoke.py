@@ -20,7 +20,9 @@ Phases (any failure raises and the script exits non-zero):
    launched; then ``group_matmul``'s tensor-core shape on integer-valued
    bf16 operands (``bench.kernels.tc_exact``: tile_m 17 to 130, sums exact
    in f32), with w as stored and transposed, must equal the plain version
-   bit for bit.  Between the grids and the kernel legs, the ``[sweep]``
+   bit for bit, and so must its TMA weight stream
+   (``bench.kernels.stream_exact``: tile_m 1, 8, 13 and 16, bf16 and f32,
+   units whole and cut over several CTAs).  Between the grids and the kernel legs, the ``[sweep]``
    legs run through ``repro_torch.core.sweep.sweep(..., device="cuda")``
    and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
    for bit, the packing schedule and the engine telemetry field for
@@ -215,7 +217,8 @@ Phases (any failure raises and the script exits non-zero):
    paths' decode and prefill shapes and the training paths' forward and
    dx shapes (the dx as the training path runs it: one transposed
    product reading ``w`` in place), each with the CTA shape the launcher
-   took (``cta_shape``); compute each kernel's bound from the bytes and FLOPs its
+   took (``cta_shape``; on the weight stream with its split: CTAs, stages
+   a CTA, CTAs a unit); compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
 14. print the kernels line (a row per leg with the legs' launches,
@@ -281,7 +284,7 @@ from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
 from repro_torch.kernels.group_matmul import (  # noqa: E402
-    expert_product, launch_shape, tile_by_expert)
+    expert_product, launch_plan, launch_shape, tile_by_expert)
 from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
@@ -2190,9 +2193,12 @@ def expert_shape_times(xe: torch.Tensor, w: torch.Tensor, *,
     flops = 2 * e * c * d * f
     wb = w.transpose(1, 2) if trans_w else w
     x, _, tile_m = tile_by_expert(xe)
+    cta_shape = launch_shape(x, w, tile_m=tile_m, trans_w=trans_w)
+    if cta_shape.endswith("_tma"):   # the weight stream's split
+        cta_shape += f" ({launch_plan(x, w, tile_m=tile_m).describe()})"
     return shares(dict(
         shape=[e, c, d, f],
-        cta_shape=launch_shape(x, w, tile_m=tile_m, trans_w=trans_w),
+        cta_shape=cta_shape,
         ms=time_ms(lambda: expert_product(xe, w, trans_w=trans_w), reps,
                    inner),
         plain_ms=time_ms(lambda: plain_grouped(xe, w, trans_w=trans_w),
@@ -2293,6 +2299,11 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[kernel] group_matmul's tensor-core shape equals the exact sums "
           f"bit for bit, w as stored and transposed: {json.dumps(exact)}",
+          flush=True)
+    exact = bench_kernels.stream_exact("cuda")
+    torch.cuda.synchronize()
+    print(f"[kernel] group_matmul's weight stream equals the exact sums bit "
+          f"for bit, w as stored and transposed: {json.dumps(exact)}",
           flush=True)
 
     # --- the paper-figure drivers over grid A's rows ------------------------

@@ -21,7 +21,8 @@ the scale layer's oracle, ``repro_torch.sparse.ops.bcsr_spmm``.
 
 :func:`tc_exact` holds ``group_matmul``'s tensor-core shape to its plain
 version bit for bit, in both layouts of ``w``, on integer-valued bf16
-operands whose sums are exact in f32 (:data:`TC_EXACT_CASES`).
+operands whose sums are exact in f32 (:data:`TC_EXACT_CASES`), and
+:func:`stream_exact` its weight stream (:data:`STREAM_EXACT_CASES`).
 """
 from __future__ import annotations
 
@@ -182,22 +183,49 @@ TC_EXACT_CASES = ((4, 128, 512, 384, 3), (6, 60, 256, 264, 4),
                   (4, 64, 1024, 520, 2), (2, 32, 64, 8, 2))
 
 
+#: weight-stream cases of the integer-exact check: tiles, tile_m, d, f,
+#: experts, dtype.  tile_m 1, 8 and 16 (and 13: rows past the tile read
+#: as zeros), d not a multiple of a ring stage's rows (64 bf16, 32 f32),
+#: f not a multiple of the 128-column unit; on a 132-SM card the units are
+#: cut over 1-2 CTAs (a CTA's first and last unit both shares), over ~13
+#: (a stage or two a CTA), or whole (one unit a CTA, written straight
+#: out).  |x|, |w| <= 8 and d <= 4096: every sum exact in f32.
+STREAM_EXACT_CASES = ((16, 8, 512, 1408, 4, "bfloat16"),
+                      (5, 1, 1000, 200, 3, "bfloat16"),
+                      (12, 8, 2048, 1408, 4, "bfloat16"),
+                      (6, 16, 4096, 264, 3, "bfloat16"),
+                      (3, 13, 520, 1032, 2, "bfloat16"),
+                      (7, 8, 1000, 200, 3, "float32"))
+
+
 def tc_exact(device="cuda", seed: int = 0, cases=TC_EXACT_CASES) -> dict:
     """``group_matmul`` on the tensor-core shape against the plain version
     in both layouts of ``w`` (as stored, and transposed and read in place)
     on integer-valued bf16 operands: the two must be equal bit for bit
     (raises otherwise).  Returns ``{case: shape launched}``."""
+    return _exact(device, seed, [(*c, "bfloat16") for c in cases])
+
+
+def stream_exact(device="cuda", seed: int = 0,
+                 cases=STREAM_EXACT_CASES) -> dict:
+    """:func:`tc_exact` on the weight stream's cases (``w`` transposed
+    runs on the operator's contiguous copy there)."""
+    return _exact(device, seed, cases)
+
+
+def _exact(device, seed, cases) -> dict:
     rng = np.random.default_rng(seed)
     out = {}
-    for tiles, tile_m, d, f, e in cases:
+    for tiles, tile_m, d, f, e, dtype in cases:
         def ints(*shape):
             return torch.as_tensor(rng.integers(-8, 9, shape),
-                                   dtype=torch.bfloat16, device=device)
+                                   dtype=getattr(torch, dtype), device=device)
         x = ints(tiles * tile_m, d)
         eid = torch.as_tensor(np.arange(tiles) * 7 % e, dtype=torch.int32,
                               device=device)
         for trans_w, w in ((False, ints(e, d, f)), (True, ints(e, f, d))):
-            name = f"t{tile_m}-d{d}-f{f}-{'wt' if trans_w else 'w'}"
+            name = (f"t{tile_m}-d{d}-f{f}-{'wt' if trans_w else 'w'}"
+                    + ("-f32" if dtype == "float32" else ""))
             shape = launch_shape(x, w, tile_m=tile_m, trans_w=trans_w)
             got = group_matmul(x, eid, w, tile_m=tile_m, trans_w=trans_w)
             want = group_matmul_plain(x, eid, w, tile_m=tile_m,

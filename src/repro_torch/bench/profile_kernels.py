@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.bench.profile_kernels [--reps 20]
 
 Profiles ``group_matmul`` at the f32 benchmark leg (the 128 x 128 tile
-core), at the serving path's decode shape (the bf16 weight stream,
-16 experts, 4096 -> 6400, tile_m 8) and at the training shapes of
+core), at the serving rows' decode shapes (the bf16 TMA weight stream,
+tile_m 8: Phi-3.5-MoE's 16 experts and a ``[mesh]`` rank's 8, 4096 <->
+6400; DeepSeek-V2-Lite's 64 and a rank's 32, 2048 <-> 1408) and at the
+training shapes of
 Phi-3.5-MoE (16 experts x 256 rows, 160 of them tokens, tile_m 128,
 4096 -> 6400) and DeepSeek-V2-Lite (64 experts x 60 rows, tile_m 60,
 2048 -> 1408), forward and dx (``trans_w``), on the tensor-core shape;
@@ -18,17 +20,23 @@ one JSON line per kernel:
 * ``launch``: what the profiler records of the kernel's launch (grid,
   block, registers per thread, shared memory, blocks and warps per SM,
   estimated achieved occupancy);
-* ``no_loads_ms`` (the tile-core and tensor-core kernels): the same
-  sources built with the tile core's global loads replaced by constants
-  and, with ``-DGM_TC_NO_LOADS``, the tensor-core shape's TMA loads left
-  out (each stage's barrier released at once, the products run on what
-  shared memory holds), so that the inner loop and the stores run alone.
+* ``no_loads_ms`` (the tile-core, tensor-core and weight-stream kernels):
+  the same sources built with the tile core's global loads replaced by
+  constants and, with ``-DGM_NO_LOADS``, the TMA shapes' loads left out
+  (each stage's barrier released at once, the products run on what shared
+  memory holds), so that the inner loop, the partial sums and the stores
+  run alone.
   That is the floor the kernel cannot go below without a new inner loop;
   ``ms - no_loads_ms`` is what waiting on the loads costs.
 * the training rows also: ``cta_shape``, ``bound_ms`` / ``bound_by``
   (the bytes and FLOPs of the 160 or 60 token rows, as ``chip_smoke.py``
   counts them), ``bound_share`` (bound_ms / ms) and ``math_ms``, the
   padded rows' FLOPs at the card's bf16 peak (989 TFLOP/s).
+* the serving rows also: ``cta_shape`` and ``split`` (the launch's
+  :class:`~repro_torch.kernels.group_matmul.StreamPlan`: CTAs, stages a
+  CTA, CTAs a unit), ``ctas``, ``bound_ms`` / ``bound_by`` (one token row
+  an expert, as ``chip_smoke.py`` counts a decode step) and
+  ``bound_share``.
 * ``bcsr_spmm`` also: ``split`` (the wrapper's choice, the launch's
   cluster size), ``ms_by_split`` (the time at each split of 1, 2, 4 and
   8, each with its no-loads floor and its ``phases``) and ``empty_ms``
@@ -58,12 +66,19 @@ from repro_torch.bench import kernels as bench_kernels
 from repro_torch.kernels import _build, bcsr_spmm, group_matmul
 from repro_torch.kernels.bcsr_spmm import (MAX_SPLIT, TILE_M, TILE_N,
                                            launch_split)
-from repro_torch.kernels.group_matmul import launch_shape
+from repro_torch.kernels.group_matmul import (call_token, launch_plan,
+                                              launch_shape, stream_workspace)
 
 #: the training shapes: experts, capacity slots (padded), token rows,
 #: d, f; tile_m = min(128, slots)
 TRAIN_SHAPES = {"group_matmul_train": (16, 256, 160, 4096, 6400),
                 "group_matmul_deepseek_train": (64, 60, 60, 2048, 1408)}
+#: the serving rows' decode shapes: experts, d, f of ``wg`` (``wo`` swaps
+#: d and f)
+SERVE_SHAPES = {"group_matmul_serve": (16, 4096, 6400),
+                "group_matmul_mesh_serve": (8, 4096, 6400),
+                "group_matmul_deepseek_serve": (64, 2048, 1408),
+                "group_matmul_deepseek_mesh_serve": (32, 2048, 1408)}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
@@ -153,12 +168,13 @@ def build_no_loads() -> dict:
         (f"-I{_build.CSRC}",))
 
 
-def build_tc_no_loads():
-    """``group_matmul.cu`` built with ``-DGM_TC_NO_LOADS``: the
-    tensor-core shape's loading thread issues no TMA load."""
-    return _build_copies("tc_no_loads",
+def build_tma_no_loads():
+    """``group_matmul.cu`` built with ``-DGM_NO_LOADS``: the loading
+    thread of the tensor-core shape and of the weight stream issues no
+    TMA load."""
+    return _build_copies("tma_no_loads",
                          {"group_matmul": _source("group_matmul.cu")},
-                         ("-DGM_TC_NO_LOADS", f"-I{_build.CSRC}")
+                         ("-DGM_NO_LOADS", f"-I{_build.CSRC}")
                          )["group_matmul"]
 
 
@@ -204,10 +220,10 @@ def phases(lib, call, n_ctas: int, n_sms: int) -> dict:
     return out
 
 
-def _entry(lib, symbol: str, n_ptrs: int, n_ints: int):
+def _entry(lib, symbol: str, n_ptrs: int, n_ints: int, n_u64: int = 0):
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_uint64] * n_u64 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -243,11 +259,11 @@ def training_bound(name: str, trans_w: bool) -> dict:
                 math_ms=2 * e * slots * k * n / PEAK_BF16_FLOPS * 1e3)
 
 
-def training_rows(gen: torch.Generator, stream: int, reps: int) -> list:
+def training_rows(gen: torch.Generator, stream: int, reps: int,
+                  tc_fn) -> list:
     """The tensor-core shape at each training shape, forward and dx: the
     profile of the kernel through the wrapper, its bound, and its
-    no-loads floor from :func:`build_tc_no_loads`."""
-    tc_fn = _entry(build_tc_no_loads(), "group_matmul_bf16", 4, 6)
+    no-loads floor (``tc_fn``: :func:`build_tma_no_loads`' entry)."""
     rows = []
     for name in TRAIN_SHAPES:
         op = training_operands(name, gen)
@@ -259,8 +275,9 @@ def training_rows(gen: torch.Generator, stream: int, reps: int) -> list:
             def floor(xin=xin, tw=tw, out=out):
                 _build.check_launch("group_matmul_bf16", tc_fn(
                     xin.data_ptr(), eid.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), xin.shape[0] // tile_m, tile_m,
-                    xin.shape[1], out.shape[1], w.shape[0], int(tw), stream))
+                    out.data_ptr(), None, xin.shape[0] // tile_m, tile_m,
+                    xin.shape[1], out.shape[1], w.shape[0], int(tw), 0, 0,
+                    stream))
             row = dict(
                 name=name + suffix,
                 shape=f"{'dx' if tw else 'forward'} wg, bf16, tile_m {tile_m}",
@@ -277,6 +294,48 @@ def training_rows(gen: torch.Generator, stream: int, reps: int) -> list:
     return rows
 
 
+def serving_rows(gen: torch.Generator, stream: int, reps: int,
+                 fn) -> list:
+    """The TMA weight stream at each serving row's decode shapes, ``wg``
+    and ``wo`` (one token row an expert in 8-row tiles): the profile of
+    the kernel through the wrapper, its plan, its bound and its no-loads
+    floor (``fn``: :func:`build_tma_no_loads`' entry)."""
+    rows = []
+    for name, (e, dg, fg) in SERVE_SHAPES.items():
+        for tag, d, f in (("wg", dg, fg), ("wo", fg, dg)):
+            x = torch.zeros((e * 8, d), device="cuda", dtype=torch.bfloat16)
+            x[::8] = torch.randn((e, d), generator=gen, device="cuda")
+            w = (torch.randn((e, d, f), generator=gen, device="cuda")
+                 * d ** -0.5).to(torch.bfloat16)
+            eid = torch.arange(e, dtype=torch.int32, device="cuda")
+            plan = launch_plan(x, w, tile_m=8)
+            ws = stream_workspace(plan, "cuda")
+            out = torch.empty((e * 8, f), device="cuda")
+            nbytes = (e * d + e * d * f) * 2 + e * f * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * e * d * f / PEAK_BF16_FLOPS
+
+            def floor(x=x, w=w, eid=eid, out=out, ws=ws, plan=plan):
+                _build.check_launch("group_matmul_bf16", fn(
+                    x.data_ptr(), eid.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), e, 8, x.shape[1],
+                    out.shape[1], e, 0, plan.ctas, call_token(), stream))
+            row = dict(
+                name=name, shape=f"decode {tag}, bf16, tile_m 8, {e} x "
+                f"{d} -> {f}", cta_shape=launch_shape(x, w, tile_m=8),
+                split=plan.describe(), ctas=plan.ctas,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                **kernel_profile(lambda x=x, w=w, eid=eid: group_matmul(
+                    x, eid, w, tile_m=8), "group_matmul_sk", reps))
+            row["no_loads_ms"] = kernel_profile(floor, "group_matmul_sk",
+                                                reps)["ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            del x, w, ws, out
+    return rows
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
@@ -287,24 +346,14 @@ def main(argv=None) -> list:
     legs = bench_kernels.leg_inputs(torch.float32, "cuda")
     gm, sd = legs["group_matmul"], legs["sddmm_blocks"]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.zeros((128, 4096), device="cuda", dtype=torch.bfloat16)
-    x[::8] = torch.randn((16, 4096), generator=gen, device="cuda").to(
-        torch.bfloat16)                     # capacity 1 in 8-row tiles
-    w = (torch.randn((16, 4096, 6400), generator=gen, device="cuda")
-         * 0.02).to(torch.bfloat16)
-    eid = torch.arange(16, dtype=torch.int32, device="cuda")
     rows = [
         dict(name="group_matmul", shape="leg, f32, tile_m 32",
              **kernel_profile(lambda: bench_kernels.run_kernel(
                  "group_matmul", gm), "group_matmul_tiled", ns.reps)),
-        dict(name="group_matmul_serve", shape="decode wg, bf16, tile_m 8",
-             **kernel_profile(lambda: group_matmul(x, eid, w, tile_m=8),
-                              "group_matmul_stream", ns.reps)),
         dict(name="sddmm_blocks", shape="leg, f32",
              **kernel_profile(lambda: bench_kernels.run_kernel(
                  "sddmm_blocks", sd), "sddmm_kernel", ns.reps)),
     ]
-    del w
     bc = legs["bcsr_spmm"]
     a, b = bc["a"], bc["b"]
     bm, bn = a.block
@@ -328,7 +377,7 @@ def main(argv=None) -> list:
     t, d = gm["x"].shape
     n_exp, _, f = gm["w"].shape
     gm_out = torch.empty((t, f), device="cuda")
-    gm_fn = _entry(libs["group_matmul"], "group_matmul_f32", 4, 6)
+    gm_fn = _entry(libs["group_matmul"], "group_matmul_f32", 5, 7, 1)
     sd_out = torch.empty((sd["brow"].numel(), sd["bm"], sd["bn"]),
                          device="cuda")
     sd_fn = _entry(libs["sddmm"], "sddmm_f32", 5, 6)
@@ -339,8 +388,8 @@ def main(argv=None) -> list:
     def gm_call():
         _build.check_launch("group_matmul_f32", gm_fn(
             gm["x"].data_ptr(), gm["eid"].data_ptr(), gm["w"].data_ptr(),
-            gm_out.data_ptr(), t // gm["tile_m"], gm["tile_m"], d, f, n_exp,
-            0, stream))
+            gm_out.data_ptr(), None, t // gm["tile_m"], gm["tile_m"], d, f,
+            n_exp, 0, 0, 0, stream))
 
 
     def sd_call():
@@ -384,7 +433,9 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
     # last, so that the small kernels' sessions above run as they did
     # before these rows existed
-    for row in training_rows(gen, stream, ns.reps):
+    tma_fn = _entry(build_tma_no_loads(), "group_matmul_bf16", 5, 7, 1)
+    for row in (serving_rows(gen, stream, ns.reps, tma_fn)
+                + training_rows(gen, stream, ns.reps, tma_fn)):
         row["device"] = card
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -13,24 +13,50 @@
 // the order of the sum differs.
 //
 // The sequential contraction axis becomes a loop inside the CTA, which
-// reads its expert ids itself.  Each output is written once by one CTA, in
-// an order fixed by the shapes (no atomics: two calls give the same bits).
-// Any d, f and tile_m work: edges are masked, nothing is padded or copied.
-// Rows of a tile whose expert id is out of range are NaN; nothing outside
-// w is read.  variant() picks the CTA shape from the dtype, tile_m, d, f
-// and the alignment alone; a launch that fails returns its error:
+// reads its expert ids itself.  Sums run in an order fixed by the shapes
+// and the card's SM count: no float atomics, so two calls give the same
+// bits.  Any d, f and tile_m work: edges are masked, nothing is padded or
+// copied.  Rows of a tile whose expert id is out of range are NaN; nothing
+// outside w is read.  variant() picks the CTA shape from the dtype, tile_m,
+// d, f and the alignment alone; a launch that fails returns its error:
 //
-// * tile_m <= 16, the weight stream (every serving call: capacity 1-6 in
+// * tile_m <= 16, the weight stream (every serving call: capacity 1-7 in
 //   one 8-row tile per expert).  Phi-3.5-MoE's decode step (16 experts,
 //   d 4096, f 6400, bf16) reads 839 MB of weights for 6.7 GFLOP, 8 FLOP a
-//   byte: the card's memory rate bounds it (0.25 ms at 3.35 TB/s).  Each
-//   lane loads 16 bytes of a weight row at a time (8 for bf16 at 16 rows),
-//   a CTA's 8 warps are 2 column groups x 4 row groups splitting d, each
-//   lane keeps 16 rows in flight in its own cp.async ring of shared memory,
-//   the tile's x rows are staged k-major in 16 KB slabs, and the row
-//   groups' partial sums are added in shared memory in a fixed order.  An
-//   f or a w that does not allow the wide load takes scalar loads into an
-//   8-deep register ring.
+//   byte: the card's memory rate bounds it (0.2506 ms at 3.35 TB/s; the
+//   [mesh] rank's 8 experts 0.1253, DeepSeek-V2-Lite's 64 experts of 2048
+//   x 1408 0.1104, its mesh rank's 32 0.0552).  So every weight byte is
+//   read once, by a grid that keeps every SM streaming whatever the expert
+//   count (NVIDIA H100 80GB HBM3, 700 W: 86-92% of those bounds in
+//   bench/profile_kernels.py, PERF.md section 6):
+//   - the work is (tile, 128-column block) units, each a contraction of
+//     ceil(d / BK) ring stages (BK = 128 bytes of a weight row: 64 bf16
+//     or 32 f32 rows); the caller's plan (kernels/group_matmul.py,
+//     stream_plan) launches one CTA per SM, and CTA i takes the stages
+//     [i S / P, (i + 1) S / P) of all S in unit order, so every CTA moves
+//     the same bytes, and a unit that straddles two CTAs' ranges is cut
+//     between them (a split of its contraction);
+//   - one thread of a loading warp issues TMA loads (3-d tensor maps, as
+//     the tensor-core shape's: w as (expert, d, f), x as (tile, row, d),
+//     so rows past the tile and past d read zeros) into an 8-stage ring of
+//     128-byte-swizzled slices with full / empty mbarriers; the weights,
+//     read once, under an L2 evict-first policy, so that they do not push
+//     out x, the shares and the output;
+//   - four warps multiply: bf16 on the tensor cores (mma.sync m16n8k16,
+//     the weights the 16-row A operand read transposed with ldmatrix.trans,
+//     the tile's 8 or 16 x rows the n8 operand; f32 accumulators), f32 by
+//     plain FMA (no TF32), a column and all rows a thread;
+//   - a CTA writes a unit it covers whole straight to out; its share of a
+//     cut unit goes to its slot of the caller's workspace, and the CTA
+//     whose share arrives last (a 64-bit counter a unit stamped with the
+//     call's token, so the workspace needs no zeroing pass) adds the
+//     shares in the contraction's order and writes out.  A CTA streams its
+//     shares first and its whole units after, so those sums run while the
+//     card still streams, not after it.
+//   An x or a w that the TMA cannot take (d or f not a multiple of 16
+//   bytes, or misaligned) takes the scalar stream: a CTA of 8 warps, 2
+//   column groups x 4 row groups splitting d, scalar loads into an 8-deep
+//   register ring, x staged k-major in 16 KB slabs.
 // * bf16, tile_m > 16, d and f multiples of 8, x and w 16-byte aligned (the
 //   TMA's strides and addresses): the tensor-core shape.  At the training
 //   shapes the weights bound it: Phi-3.5-MoE's wg (16 experts x 256 padded
@@ -86,7 +112,7 @@ namespace {
 using tile_f32::bf16_hi;
 using tile_f32::bf16_lo;
 
-// ---- weight stream: one tile of <= R rows, the warps split d ---------------
+// ---- scalar stream: one tile of <= R rows, the warps split d ---------------
 constexpr int SNT = 256;        // threads of a stream CTA: two fit an SM
 constexpr int SNW = SNT / 32;   // its warps
 constexpr int SWS = 4;          // row groups: warps that split d
@@ -96,20 +122,17 @@ template <int BYTES> struct Vec;
 template <> struct Vec<16> { using type = uint4; };
 template <> struct Vec<8> { using type = uint2; };
 
-template <typename T, int R, bool VEC>
+template <typename T, int R>
 struct Stream {
   static constexpr int CW = 16 / (int)sizeof(T) < 64 / R
                                 ? 16 / (int)sizeof(T) : 64 / R;   // columns a lane
   static constexpr int COLS = SCG * 32 * CW;          // columns a CTA
-  static constexpr int VB = CW * (int)sizeof(T);      // bytes a weight load
-  // weight loads in flight a lane: a ring of 16 shared-memory slots fed by
-  // cp.async, or (scalar loads) of 8 registers
-  static constexpr int U = VEC ? 16 : 8;
+  static constexpr int VB = CW * (int)sizeof(T);      // bytes of a lane's row
+  static constexpr int U = 8;   // weight rows in flight a lane, in registers
   static constexpr int XS = 16 * 1024;                // x slab bytes
   static constexpr int KS = XS / (R * (int)sizeof(T));   // x rows a slab
-  static constexpr int RING = VEC ? SNT * U * VB : 0;
   static constexpr int RED = SWS * R * COLS * 4;      // the warps' partial sums
-  static constexpr int SMEM = XS + RING > RED ? XS + RING : RED;
+  static constexpr int SMEM = XS > RED ? XS : RED;
   using V = typename Vec<VB>::type;
   static_assert(R % 8 == 0 && (R * sizeof(T)) % 16 == 0, "x row reads");
   static_assert(KS % (U * SWS) == 0, "the ring carries over slabs");
@@ -129,26 +152,6 @@ __device__ __forceinline__ void unpack(const uint32_t (&wd)[N], float* out) {
   }
 }
 
-// A 16- or 8-byte asynchronous copy from device to shared memory, its
-// commit, and the wait until at most N of this thread's groups are pending.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // CW elements of a weight row at p, one load an element, zero where !ok or
 // past the `left` columns that exist from p on (the scalar variant).
 template <typename T, typename V>
@@ -165,17 +168,16 @@ __device__ __forceinline__ V load_scalar(const T* p, bool ok, int left) {
   return v;
 }
 
-template <typename T, int R, bool VEC>
+template <typename T, int R>
 __global__ void __launch_bounds__(SNT, 2)
 group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
                     const T* __restrict__ w, float* __restrict__ out,
                     int tile_m, int d, int f, int n_experts) {
-  using S = Stream<T, R, VEC>;
+  using S = Stream<T, R>;
   using V = typename S::V;
   constexpr int CW = S::CW, U = S::U;
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);             // [KS][R], a slab of x
-  V* ring = reinterpret_cast<V*>(smem + S::XS);   // [U][SNT] weight slots
   float* red = reinterpret_cast<float*>(smem);    // [SWS][R][COLS] at the end
   const int tile = blockIdx.y;
   const size_t row0 = (size_t)tile * tile_m;
@@ -196,16 +198,10 @@ group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
   const int left = f - n;
   const T* wn = w + (size_t)ex * d * f + n;   // this lane's columns, row 0
   const T* xt = x + row0 * d;
-  // step j of a lane is row wr + j * SWS, held in slot j % U of its ring
-  auto row_ok = [&](int k) { return col_ok && k < d; };
-  V regs[VEC ? 1 : U];
-  auto issue = [&](int slot, int k) {   // start the load of row k
-    if constexpr (VEC) {
-      if (row_ok(k)) cp_async<S::VB>(ring + slot * SNT + tid, wn + (size_t)k * f);
-      cp_commit();   // one group a step, empty or not
-    } else {
-      regs[slot] = load_scalar<T, V>(wn + (size_t)k * f, row_ok(k), left);
-    }
+  // step j of a lane is row wr + j * SWS, held in register slot j % U
+  V regs[U];
+  auto issue = [&](int slot, int k) {   // load row k
+    regs[slot] = load_scalar<T, V>(wn + (size_t)k * f, col_ok && k < d, left);
   };
 
   float acc[R][CW];
@@ -214,9 +210,8 @@ group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[r][c] = 0.f;
 
-  constexpr int AHEAD = VEC ? U - 1 : U;   // steps in flight before the first
 #pragma unroll
-  for (int j = 0; j < AHEAD; ++j) issue(j, wr + j * SWS);
+  for (int j = 0; j < U; ++j) issue(j, wr + j * SWS);
 
   for (int k0 = 0; k0 < d; k0 += S::KS) {
     const int kn = min(S::KS, d - k0);
@@ -232,16 +227,8 @@ group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int k = kb + u * SWS;        // row in the slab
-        const int kg = k0 + k;             // row in w
-        V cur;
-        if constexpr (VEC) {
-          issue((u + U - 1) % U, kg + (U - 1) * SWS);
-          cp_wait<U - 1>();                // step u's copy has landed
-          cur = ring[u * SNT + tid];
-        } else {
-          cur = regs[u];
-          issue(u, kg + U * SWS);
-        }
+        const V cur = regs[u];
+        issue(u, k0 + k + U * SWS);
         if (k < kn) {
           uint32_t wd[S::VB / 4];
           memcpy(wd, &cur, sizeof(V));
@@ -265,8 +252,7 @@ group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
     }
   }
 
-  if constexpr (VEC) cp_wait<0>();
-  __syncthreads();   // x and the ring are dead: their space takes the sums
+  __syncthreads();   // x is dead: its space takes the sums
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -280,6 +266,323 @@ group_matmul_stream(const T* __restrict__ x, const int* __restrict__ eid,
 #pragma unroll
     for (int v = 0; v < SWS; ++v) s += red[(v * R + r) * S::COLS + c];
     out[(row0 + r) * f + n0 + c] = s;
+  }
+}
+
+// ---- weight stream: tiles of <= 16 rows, TMA ring, equal shares a CTA ----
+namespace sk {
+
+constexpr int BN = 128;                    // columns of a unit
+constexpr int CONSUMERS = 4;               // warps that multiply
+constexpr int CT = 32 * CONSUMERS;         // their threads
+constexpr int NT = 32 + CT;                // and the loading warp
+constexpr int STAGES = 8;
+
+// A ring stage: the unit's BN columns of w, BK rows deep, as NB TMA boxes
+// of BK rows of 128 bytes (CB columns), then the tile's R rows of x, BK
+// deep (one 128-byte row each).  Every box is a whole number of 1,024-byte
+// swizzle atoms, so the 16-byte chunk c of a box's row r lies at c ^ (r % 8).
+template <typename T, int R>
+struct Shape {
+  static constexpr int CB = 128 / (int)sizeof(T);
+  static constexpr int BK = CB;
+  static constexpr int NB = BN / CB;
+  static constexpr int BOX = BK * 128;
+  static constexpr int W_BYTES = NB * BOX;
+  static constexpr int STAGE = W_BYTES + R * 128;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static constexpr int PART = R * BN;      // floats of a unit's partial sum
+  static constexpr int NV = R * BN / CT;   // sums a consumer thread
+  static_assert(STAGE % 1024 == 0 && BOX % 1024 == 0, "swizzle atoms");
+  static_assert(BN % CT == 0, "whole columns a consumer thread");
+};
+
+// A stage's products into a consumer thread's NV sums (thread ct of CT).
+// bf16: warp ct / 32 owns the unit's columns WC (ct / 32) + [0, WC) as
+// WC / 16 m16 blocks, the weights mma's A (ldmatrix.trans of the (k,
+// column) box); the tile's R rows are R / 8 n8 blocks, x mma's B (ldmatrix
+// of its rows); sum j is block j / 4 (m16 block (j / 4) / NR, n8 block
+// (j / 4) % NR), element j % 4 of the fragment.  f32: thread ct owns the
+// columns ct + CT c, all R rows, by FMA; sum j is column j / R, row j % R.
+template <typename T, int R>
+__device__ __forceinline__ void consume(float (&acc)[Shape<T, R>::NV],
+                                        uint32_t wst, uint32_t xst, int ct) {
+  using S = Shape<T, R>;
+  using namespace hopper;
+  if constexpr (sizeof(T) == 2) {
+    constexpr int NR = R / 8, WC = BN / CONSUMERS;
+    const int lane = ct % 32, q = lane / 8, i = lane % 8;  // ldmatrix rows
+#pragma unroll
+    for (int kk = 0; kk < S::BK / 16; ++kk) {
+      uint32_t b[NR][2];
+      if constexpr (NR == 1) {   // (rows 0-7, k 0-7), (rows 0-7, k 8-15)
+        ldmatrix_x2(xst + i * 128 + (((2 * kk + (q & 1)) ^ i) << 4), b[0]);
+      } else {                   // and the same of rows 8-15
+        uint32_t r4[4];
+        ldmatrix_x4(xst + ((q / 2) * 8 + i) * 128 +
+                        (((2 * kk + (q & 1)) ^ i) << 4),
+                    r4);
+        b[0][0] = r4[0];
+        b[0][1] = r4[1];
+        b[1][0] = r4[2];
+        b[1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mb = 0; mb < WC / 16; ++mb) {
+        // A's four 8 x 8 matrices: (columns m0 + 0-7, k 0-7), (m0 + 8-15,
+        // k 0-7), (m0 + 0-7, k 8-15), (m0 + 8-15, k 8-15), each read from
+        // the box's rows k (the stored (k, column) layout, transposed)
+        const int m0 = (ct / 32) * WC + mb * 16;
+        const int k = kk * 16 + (q / 2) * 8 + i;
+        const int chunk = (m0 % 64) / 8 + (q & 1);
+        uint32_t a[4];
+        ldmatrix_x4_trans(
+            wst + (m0 / 64) * S::BOX + k * 128 + ((chunk ^ i) << 4), a);
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr)
+          mma_m16n8k16(acc + (mb * NR + nr) * 4, a, b[nr]);
+      }
+    }
+  } else {
+    const int cc = ct % 32;   // column in its box
+#pragma unroll
+    for (int c = 0; c < BN / CT; ++c) {
+      const uint32_t wcol = wst + (ct / 32 + c * CT / 32) * S::BOX +
+                            (cc % 4) * 4;
+#pragma unroll
+      for (int k4 = 0; k4 < S::BK / 4; ++k4) {
+        float wv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * k4 + j;
+          wv[j] = lds_f32(wcol + k * 128 + (((cc / 4) ^ (k & 7)) << 4));
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 xv = lds_f32x4(xst + r * 128 + ((k4 ^ (r & 7)) << 4));
+          float& a = acc[c * R + r];
+          a = fmaf(xv.x, wv[0], a);
+          a = fmaf(xv.y, wv[1], a);
+          a = fmaf(xv.z, wv[2], a);
+          a = fmaf(xv.w, wv[3], a);
+        }
+      }
+    }
+  }
+}
+
+// The (row of the tile, column of the unit) of a consumer thread's sum j.
+template <typename T, int R>
+__device__ __forceinline__ void place(int j, int ct, int& row, int& col) {
+  if constexpr (sizeof(T) == 2) {
+    constexpr int NR = R / 8, WC = BN / CONSUMERS;
+    const int blk = j / 4, e = j % 4, lane = ct % 32;
+    col = (ct / 32) * WC + (blk / NR) * 16 + lane / 4 + 8 * (e / 2);
+    row = (blk % NR) * 8 + 2 * (lane % 4) + (e & 1);
+  } else {
+    row = j % R;
+    col = ct + CT * (j / R);
+  }
+}
+
+}  // namespace sk
+
+namespace sk {
+
+// A unit's arrival counter: this call's 48-bit token over a 16-bit count
+// of the shares written.  A word that does not carry the token counts as
+// zero, so a fresh workspace needs no zeroing pass (another launch on the
+// stream); the last share's CTA sets it back to zero, so a CUDA graph's
+// next replay, which carries the same token, starts from zero too.
+__device__ __forceinline__ int arrive(unsigned long long* word,
+                                      unsigned long long token) {
+  unsigned long long cur = *reinterpret_cast<volatile unsigned long long*>(word);
+  for (;;) {
+    const unsigned long long next =
+        cur >> 16 == token ? cur + 1 : token << 16 | 1;
+    const unsigned long long seen = atomicCAS(word, cur, next);
+    if (seen == cur) return (int)(next & 0xffff);
+    cur = seen;
+  }
+}
+
+// CTA i's stages [lo, hi) as segments, one a unit, in the order the CTA
+// streams them: the units it shares with its neighbours (at most its first
+// and its last) first, so that their sums run while it streams the rest,
+// then the units it covers whole, in order.
+struct Order {
+  long long lo, hi, ua, ub;   // the stages; the first and the last unit
+  int K;                      // stages of a unit
+  bool pa, pb;                // ua, ub are shared (ub only if not ua)
+  __device__ Order(long long lo_, long long hi_, int k)
+      : lo(lo_), hi(hi_), ua(lo_ / k), ub((hi_ - 1) / k), K(k) {
+    pa = lo != ua * K || hi < (ua + 1) * K;
+    pb = ub != ua && hi != (ub + 1) * K;
+  }
+  __device__ int count() const { return (int)(ub - ua + 1); }
+  __device__ long long unit(int j) const {
+    const int shared = pa + pb;
+    if (j < shared) return j == 0 && pa ? ua : ub;
+    return ua + pa + (j - shared);
+  }
+  __device__ long long begin(long long u) const { return max(lo, u * K); }
+  __device__ long long end(long long u) const { return min(hi, (u + 1) * K); }
+};
+
+}  // namespace sk
+
+// The weight stream.  part: 2 slots of Shape::PART floats a CTA (slot 0
+// its first unit's share, slot 1 its last's); arrived: a counter a unit
+// (sk::arrive).
+template <typename T, int R>
+__global__ void __launch_bounds__(sk::NT, 1)
+group_matmul_sk(__grid_constant__ const CUtensorMap xmap,
+                __grid_constant__ const CUtensorMap wmap,
+                const int* __restrict__ eid, float* __restrict__ out,
+                float* __restrict__ part,
+                unsigned long long* __restrict__ arrived,
+                unsigned long long token, int n_tiles, int tile_m, int d,
+                int f, int n_experts) {
+  using S = sk::Shape<T, R>;
+  using namespace hopper;
+  constexpr int ST = sk::STAGES, BN = sk::BN, BK = S::BK;
+  const int n_cb = (f + BN - 1) / BN;
+  const int K = (d + BK - 1) / BK;   // stages of a unit
+  const long long W = (long long)n_tiles * n_cb * K;
+  const int P = gridDim.x;
+  // CTA i's stages are [first(i), first(i + 1)); the owner of stage s is
+  // the last CTA whose first stage is <= s (some CTAs have none when there
+  // are more CTAs than stages)
+  auto first = [&](long long i) { return W * i / P; };
+  auto owner = [&](long long s) { return (int)(((s + 1) * P - 1) / W); };
+  const long long lo = first(blockIdx.x), hi = first(blockIdx.x + 1);
+  if (lo == hi) return;   // CTA-uniform, before any barrier
+  const sk::Order order(lo, hi, K);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last;   // this CTA arrived last at the unit it finishes
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + ST * S::STAGE;   // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + ST * 8;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, sk::CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid < 32) {   // the loading warp: one thread issues every load
+    if (tid == 0) {
+      prefetch_tensormap(&wmap);
+      prefetch_tensormap(&xmap);
+      // the weights are read once: they leave L2 before x and the shares
+      const uint64_t once = evict_first_policy();
+      int s = 0;      // stages issued
+      for (int j = 0; j < order.count(); ++j) {
+        const long long u = order.unit(j);
+        const int tile = (int)(u / n_cb);
+        const int n0 = (int)(u - (long long)tile * n_cb) * BN;
+        const int ex = eid[tile];
+        // a bad id reads expert 0; its rows are written as NaN
+        const int el = ex < 0 || ex >= n_experts ? 0 : ex;
+        for (long long g = order.begin(u); g < order.end(u); ++g, ++s) {
+          const int st = s % ST, k0 = (int)(g - u * K) * BK;
+          // stage st was released by the products of step s - ST
+          if (s >= ST) mbar_wait(empty0 + 8 * st, (s / ST - 1) & 1);
+          const uint32_t full = full0 + 8 * st, a = base + st * S::STAGE;
+#ifdef GM_NO_LOADS   // profile_kernels' floor: the products alone
+          mbar_arrive(full);
+#else
+          mbar_expect_tx(full, S::STAGE);
+#pragma unroll
+          for (int b = 0; b < S::NB; ++b)
+            tma_load_3d(a + b * S::BOX, &wmap, full, n0 + b * S::CB, k0, el,
+                        once);
+          tma_load_3d(a + S::W_BYTES, &xmap, full, k0, 0, tile);
+#endif
+        }
+      }
+    }
+    return;
+  }
+  const int ct = tid - 32;   // consumer thread
+  constexpr int NV = S::NV;
+  float acc[NV];
+  int s = 0;                 // stages consumed
+  for (int j = 0; j < order.count(); ++j) {
+    const long long u = order.unit(j);
+    const long long g0 = order.begin(u), g1 = order.end(u);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[v] = 0.f;
+    for (long long g = g0; g < g1; ++g, ++s) {
+      const int st = s % ST;
+      mbar_wait(full0 + 8 * st, (s / ST) & 1);
+      const uint32_t a = base + st * S::STAGE;
+      sk::consume<T, R>(acc, a, a + S::W_BYTES, ct);
+      __syncwarp();
+      if (ct % 32 == 0) mbar_arrive(empty0 + 8 * st);
+    }
+    const int tile = (int)(u / n_cb);
+    const int n0 = (int)(u - (long long)tile * n_cb) * BN;
+    const int ex = eid[tile];
+    const bool bad = ex < 0 || ex >= n_experts;
+    const int cols = min(BN, f - n0);
+    float* orow = out + (size_t)tile * tile_m * f + n0;
+    auto put = [&](const float (&val)[NV]) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        int row, col;
+        sk::place<T, R>(v, ct, row, col);
+        if (row < tile_m && col < cols)
+          orow[(size_t)row * f + col] =
+              bad ? __int_as_float(0x7fc00000) : val[v];
+      }
+    };
+    if (g0 == u * K && g1 == (u + 1) * K) {
+      put(acc);   // the whole unit
+      continue;
+    }
+    // a share: into slot 0 if u is this CTA's first unit, else slot 1
+    float* mine =
+        part + ((size_t)blockIdx.x * 2 + (u == order.ua ? 0 : 1)) * S::PART;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      int row, col;
+      sk::place<T, R>(v, ct, row, col);
+      mine[row * BN + col] = acc[v];
+    }
+    named_sync(1, sk::CT);   // the whole share is written
+    const int i0 = owner(u * K), i1 = owner((u + 1) * K - 1);
+    if (ct == 0) {
+      int shares = 0;
+      for (int i = i0; i <= i1; ++i) shares += first(i) < first(i + 1);
+      __threadfence();   // the share before the arrival
+      last = sk::arrive(arrived + u, token) == shares;
+      __threadfence();   // the arrival before the others' shares
+    }
+    named_sync(1, sk::CT);
+    if (!last) continue;
+    // the last share of u: add them all in the contraction's order
+    float sum[NV] = {};
+    bool started = false;
+    for (int i = i0; i <= i1; ++i) {
+      const long long li = first(i);
+      if (li == first(i + 1)) continue;
+      const float* p =
+          part + ((size_t)i * 2 + (u == li / K ? 0 : 1)) * S::PART;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        int row, col;
+        sk::place<T, R>(v, ct, row, col);
+        const float x =
+            i == (int)blockIdx.x ? acc[v] : __ldcg(p + row * BN + col);
+        sum[v] = started ? sum[v] + x : x;
+      }
+      started = true;
+    }
+    put(sum);
+    if (ct == 0) arrived[u] = 0;   // no share of u arrives after this
   }
 }
 
@@ -398,7 +701,7 @@ group_matmul_tc(__grid_constant__ const CUtensorMap xmap,
         if (kt >= ST) mbar_wait(empty0 + 8 * s, (kt / ST - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         const uint32_t a = base + s * S::STAGE, b = a + S::A_BYTES;
-#ifdef GM_TC_NO_LOADS   // profile_kernels' floor: the products alone
+#ifdef GM_NO_LOADS   // profile_kernels' floor: the products alone
         mbar_arrive(full);
 #else
         mbar_expect_tx(full, S::STAGE);
@@ -480,12 +783,12 @@ int allow_smem(K kernel, int bytes) {
              : 0;
 }
 
-template <typename T, int R, bool VEC>
+template <typename T, int R>
 int launch_stream(const T* x, const int* eid, const T* w, float* out,
                   int n_tiles, int tile_m, int d, int f, int n_experts,
                   cudaStream_t st) {
-  using S = Stream<T, R, VEC>;
-  auto kernel = group_matmul_stream<T, R, VEC>;
+  using S = Stream<T, R>;
+  auto kernel = group_matmul_stream<T, R>;
   static const int attr = allow_smem(kernel, S::SMEM);   // once a variant
   if (attr) return attr;
   const dim3 grid((unsigned)((f + S::COLS - 1) / S::COLS),
@@ -513,17 +816,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-d bf16 tensor map, dims and box innermost first, 128-byte swizzle,
-// zeros past the edges; cudaErrorInvalidValue if libcuda refuses it.
+// A 3-d tensor map of T (bf16 or f32), dims and box innermost first,
+// 128-byte swizzle, zeros past the edges; cudaErrorInvalidValue if libcuda
+// refuses it.
+template <typename T>
 int tensor_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
                uint64_t d2, uint32_t b0, uint32_t b1) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};   // bytes, dims 1, 2
+  const cuuint64_t strides[2] = {d0 * sizeof(T),
+                                 d0 * d1 * sizeof(T)};   // bytes, dims 1, 2
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = fn(map,
+                        sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        3,
                         const_cast<void*>(ptr), dims, strides, box, one,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -540,11 +849,12 @@ int launch_tc(const __nv_bfloat16* x, const int* eid, const __nv_bfloat16* w,
   auto kernel = group_matmul_tc<BM, KMAJOR>;
   static const int attr = allow_smem(kernel, S::SMEM);   // once a variant
   if (attr) return attr;
+  using B = __nv_bfloat16;
   CUtensorMap xm, wm;
-  int err = tensor_map(&xm, x, d, tile_m, n_tiles, tc::BK, BM);
+  int err = tensor_map<B>(&xm, x, d, tile_m, n_tiles, tc::BK, BM);
   if (!err)
-    err = KMAJOR ? tensor_map(&wm, w, d, f, n_experts, tc::BK, tc::BN)
-                 : tensor_map(&wm, w, f, d, n_experts, 64, tc::BK);
+    err = KMAJOR ? tensor_map<B>(&wm, w, d, f, n_experts, tc::BK, tc::BN)
+                 : tensor_map<B>(&wm, w, f, d, n_experts, 64, tc::BK);
   if (err) return err;
   const long long ctas = (long long)n_tiles * ((tile_m + BM - 1) / BM) *
                          ((f + tc::BN - 1) / tc::BN);
@@ -554,9 +864,41 @@ int launch_tc(const __nv_bfloat16* x, const int* eid, const __nv_bfloat16* w,
   return 0;
 }
 
+// The workspace bytes of a weight-stream launch: two partial-sum slots a
+// CTA, then a 64-bit counter a unit (kernels/group_matmul.py, StreamPlan, sizes it
+// the same way).
+size_t stream_workspace(int n_tiles, int tile_m, int f, int ctas) {
+  const size_t rows = tile_m <= 8 ? 8 : 16;
+  const size_t units = (size_t)n_tiles * ((f + sk::BN - 1) / sk::BN);
+  return (size_t)ctas * 2 * rows * sk::BN * 4 + units * 8;
+}
+
+template <typename T, int R>
+int launch_sk(const T* x, const int* eid, const T* w, float* out, void* ws,
+              int ctas, unsigned long long token, int n_tiles, int tile_m,
+              int d, int f, int n_experts, cudaStream_t st) {
+  using S = sk::Shape<T, R>;
+  // a unit's shares are counted in 16 bits, the token in 48
+  if (ws == nullptr || ctas < 1 || ctas > 0xffff || token >> 48 || !token)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = group_matmul_sk<T, R>;
+  static const int attr = allow_smem(kernel, S::SMEM);   // once a variant
+  if (attr) return attr;
+  CUtensorMap xm, wm;
+  int err = tensor_map<T>(&xm, x, d, tile_m, n_tiles, S::BK, R);
+  if (!err) err = tensor_map<T>(&wm, w, f, d, n_experts, S::CB, S::BK);
+  if (err) return err;
+  float* part = (float*)ws;
+  auto* arrived = (unsigned long long*)(part + (size_t)ctas * 2 * S::PART);
+  kernel<<<ctas, sk::NT, S::SMEM, st>>>(xm, wm, eid, out, part, arrived,
+                                        token, n_tiles, tile_m, d, f,
+                                        n_experts);
+  return 0;
+}
+
 // The launch variants, by shape and alignment only.
 enum Variant {
-  STREAM8_SCALAR, STREAM8_VEC, STREAM16_SCALAR, STREAM16_VEC,
+  STREAM8_SCALAR, STREAM8_TMA, STREAM16_SCALAR, STREAM16_TMA,
   TILED_SCALAR, TILED_VEC, TC64, TC128
 };
 
@@ -564,11 +906,11 @@ template <typename T>
 int variant(const void* x, const void* w, int tile_m, int d, int f) {
   const auto xa = reinterpret_cast<uintptr_t>(x);
   const auto wa = reinterpret_cast<uintptr_t>(w);
-  if (tile_m <= 16) {
-    const int r8 = tile_m <= 8;
-    const int cw = r8 ? Stream<T, 8, true>::CW : Stream<T, 16, true>::CW;
-    const bool vec = f % cw == 0 && wa % (cw * sizeof(T)) == 0;
-    return (r8 ? STREAM8_SCALAR : STREAM16_SCALAR) + vec;
+  if (tile_m <= 16) {   // the TMA's strides and addresses: 16 bytes
+    const int v = 16 / (int)sizeof(T);
+    const bool tma = d % v == 0 && f % v == 0 && xa % 16 == 0 &&
+                     wa % 16 == 0;
+    return (tile_m <= 8 ? STREAM8_SCALAR : STREAM16_SCALAR) + tma;
   }
   if (sizeof(T) == 2 && d % 8 == 0 && f % 8 == 0 && xa % 16 == 0 &&
       wa % 16 == 0)
@@ -581,8 +923,8 @@ int variant(const void* x, const void* w, int tile_m, int d, int f) {
 
 template <typename T>
 int launch(const void* x, const void* eid, const void* w, void* out,
-           int n_tiles, int tile_m, int d, int f, int n_experts,
-           int trans_w, void* stream) {
+           void* ws, int n_tiles, int tile_m, int d, int f, int n_experts,
+           int trans_w, int ctas, unsigned long long token, void* stream) {
   const auto xp = (const T*)x;
   const auto ep = (const int*)eid;
   const auto wp = (const T*)w;
@@ -607,18 +949,18 @@ int launch(const void* x, const void* eid, const void* w, void* out,
                       : launch_tc<128, false>(xb, ep, wb, op, n_tiles,
                                               tile_m, d, f, n_experts, st);
     }
-  } else if (v <= STREAM8_VEC) {
-    err = v == STREAM8_VEC
-              ? launch_stream<T, 8, true>(xp, ep, wp, op, n_tiles, tile_m, d,
-                                          f, n_experts, st)
-              : launch_stream<T, 8, false>(xp, ep, wp, op, n_tiles, tile_m, d,
-                                           f, n_experts, st);
-  } else if (v <= STREAM16_VEC) {
-    err = v == STREAM16_VEC
-              ? launch_stream<T, 16, true>(xp, ep, wp, op, n_tiles, tile_m, d,
-                                           f, n_experts, st)
-              : launch_stream<T, 16, false>(xp, ep, wp, op, n_tiles, tile_m,
-                                            d, f, n_experts, st);
+  } else if (v == STREAM8_TMA) {
+    err = launch_sk<T, 8>(xp, ep, wp, op, ws, ctas, token, n_tiles, tile_m,
+                          d, f, n_experts, st);
+  } else if (v == STREAM16_TMA) {
+    err = launch_sk<T, 16>(xp, ep, wp, op, ws, ctas, token, n_tiles, tile_m,
+                           d, f, n_experts, st);
+  } else if (v == STREAM8_SCALAR) {
+    err = launch_stream<T, 8>(xp, ep, wp, op, n_tiles, tile_m, d, f,
+                              n_experts, st);
+  } else if (v == STREAM16_SCALAR) {
+    err = launch_stream<T, 16>(xp, ep, wp, op, n_tiles, tile_m, d, f,
+                               n_experts, st);
   } else {
     const int t = n_tiles * tile_m;
     const dim3 grid((unsigned)((f + TBN - 1) / TBN),
@@ -639,21 +981,28 @@ int launch(const void* x, const void* eid, const void* w, void* out,
 // (n_experts, d, f), or (n_experts, f, d) with trans_w (the tensor-core
 // shape only: elsewhere it returns cudaErrorInvalidValue); x and w both f32
 // or both bf16; eid is (n_tiles,) int32; out is (n_tiles * tile_m, f) f32;
-// all contiguous.  Returns cudaGetLastError() after the launch.
+// all contiguous.  ws, ctas and token: the weight stream's workspace (at
+// least group_matmul_stream_workspace bytes, 8-byte aligned), CTA count
+// (at most 65,535) and the call's token (nonzero, under 2^48, never the
+// token of an earlier call whose workspace the memory may have been),
+// read by the TMA weight stream only (null, 0 and 0 elsewhere).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int group_matmul_f32(const void* x, const void* eid,
-                                const void* w, void* out, int n_tiles,
-                                int tile_m, int d, int f, int n_experts,
-                                int trans_w, void* stream) {
-  return launch<float>(x, eid, w, out, n_tiles, tile_m, d, f, n_experts,
-                       trans_w, stream);
+                                const void* w, void* out, void* ws,
+                                int n_tiles, int tile_m, int d, int f,
+                                int n_experts, int trans_w, int ctas,
+                                unsigned long long token, void* stream) {
+  return launch<float>(x, eid, w, out, ws, n_tiles, tile_m, d, f, n_experts,
+                       trans_w, ctas, token, stream);
 }
 
 extern "C" int group_matmul_bf16(const void* x, const void* eid,
-                                 const void* w, void* out, int n_tiles,
-                                 int tile_m, int d, int f, int n_experts,
-                                 int trans_w, void* stream) {
-  return launch<__nv_bfloat16>(x, eid, w, out, n_tiles, tile_m, d, f,
-                               n_experts, trans_w, stream);
+                                 const void* w, void* out, void* ws,
+                                 int n_tiles, int tile_m, int d, int f,
+                                 int n_experts, int trans_w, int ctas,
+                                 unsigned long long token, void* stream) {
+  return launch<__nv_bfloat16>(x, eid, w, out, ws, n_tiles, tile_m, d, f,
+                               n_experts, trans_w, ctas, token, stream);
 }
 
 // The Variant a launch of these operands takes (nothing is launched).
@@ -661,4 +1010,11 @@ extern "C" int group_matmul_variant(const void* x, const void* w, int bf16,
                                     int tile_m, int d, int f) {
   return bf16 ? variant<__nv_bfloat16>(x, w, tile_m, d, f)
               : variant<float>(x, w, tile_m, d, f);
+}
+
+// The bytes of the weight stream's workspace at ctas CTAs (a check on the
+// caller's own count).
+extern "C" long long group_matmul_stream_workspace(int n_tiles, int tile_m,
+                                                   int f, int ctas) {
+  return (long long)stream_workspace(n_tiles, tile_m, f, ctas);
 }

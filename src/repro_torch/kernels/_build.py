@@ -104,14 +104,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, *,
-         stream: bool = True):
-    """A C entry point taking ``n_ptrs`` pointers, ``n_ints`` ints and the
-    stream (unless ``stream=False``), returning an int: a launch's
+         n_u64: int = 0, stream: bool = True):
+    """A C entry point taking ``n_ptrs`` pointers, ``n_ints`` ints,
+    ``n_u64`` unsigned 64-bit ints and the stream (unless
+    ``stream=False``), returning an int: a launch's
     ``cudaGetLastError()``."""
     fn = _FNS.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_uint64] * n_u64
                        + [ctypes.c_void_p] * stream)
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn

@@ -9,8 +9,16 @@ launches the hand-written kernel ``csrc/group_matmul.cu``, whose launcher
 picks the CTA shape from the dtype, ``tile_m``, the widths and the
 alignment (:func:`launch_shape` names it):
 
-* tiles of up to 16 rows: a weight stream (the serving calls), which the
-  weights' bytes bound;
+* tiles of up to 16 rows (every serving call): the weight stream, which
+  the weights' bytes bound (Phi-3.5-MoE's decode products 0.2506 ms on an
+  H100 at 3.35 TB/s, a ``[mesh]`` rank's 8 experts 0.1253, DeepSeek-V2-Lite's
+  64 experts 0.1104, its rank's 32 0.0552).  One CTA a streaming
+  multiprocessor walks an equal share of all the (tile, 128-column block,
+  contraction stage) work (:func:`stream_plan`), so the card fills at any
+  expert count: a TMA ring feeds bf16 products to ``mma.sync`` (f32 to
+  plain FMA), and a unit cut between CTAs is summed, in the contraction's
+  order, from the shares that the launch's workspace holds
+  (:func:`stream_workspace`, allocated here with ``torch.empty``);
 * bf16 tiles of more than 16 rows whose widths are multiples of 8 (the
   training calls): the tensor-core shape, a TMA ring of 64-deep slices
   feeding ``wgmma`` (bf16 in, f32 accumulated), 64 or 128 rows of one tile
@@ -42,6 +50,10 @@ have no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import itertools
+import os
 import threading
 
 import torch
@@ -118,8 +130,8 @@ def _group_matmul_op(x: torch.Tensor, expert_of_tile: torch.Tensor,
 
 
 #: ``csrc/group_matmul.cu``'s ``Variant`` codes, by name
-VARIANTS = ("stream8_scalar", "stream8_vec", "stream16_scalar",
-            "stream16_vec", "tiled_scalar", "tiled_vec", "tc64", "tc128")
+VARIANTS = ("stream8_scalar", "stream8_tma", "stream16_scalar",
+            "stream16_tma", "tiled_scalar", "tiled_vec", "tc64", "tc128")
 TENSOR_CORE = ("tc64", "tc128")
 
 
@@ -132,6 +144,118 @@ def _variant(x: torch.Tensor, w: torch.Tensor, tile_m: int, d: int,
                      stream=False)
     return VARIANTS[fn(x.data_ptr(), w.data_ptr(),
                        int(x.dtype == torch.bfloat16), tile_m, d, f)]
+
+
+#: the weight stream's tiles: at most this many rows (``csrc``'s R is 8
+#: or 16)
+STREAM_MAX_ROWS = 16
+#: its unit's columns and, by element size, the rows of ``w`` a ring stage
+#: holds (one 128-byte TMA box wide): ``csrc/group_matmul.cu``'s ``sk``
+STREAM_BN = 128
+STREAM_BK = {2: 64, 4: 32}
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """How a weight-stream launch divides its work: ``units`` (tile,
+    ``STREAM_BN``-column block) pairs in tile-major order, each a
+    contraction of ``k_steps`` ring stages of ``bk`` rows of ``w``; CTA
+    ``i`` of ``ctas`` takes the stages ``[first(i), first(i + 1))`` of all
+    of them in order, the same arithmetic as the kernel's."""
+    ctas: int
+    rows: int          # the kernel's R: 8 or 16 rows a tile
+    units: int
+    k_steps: int
+    bk: int
+
+    @property
+    def steps(self) -> int:
+        return self.units * self.k_steps
+
+    def first(self, i: int) -> int:
+        return self.steps * i // self.ctas
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Two partial-sum slots of ``rows x STREAM_BN`` f32 a CTA, then
+        a 64-bit arrival counter a unit."""
+        return self.ctas * 2 * self.rows * STREAM_BN * 4 + self.units * 8
+
+    def segments(self):
+        """``(cta, unit, first stage, end stage, slot)`` of every piece of
+        work, CTA by CTA, each CTA's units in order (the kernel streams a
+        CTA's shares of cut units before its whole units; the sums do not
+        depend on that): stages count inside the unit; ``slot`` is the
+        CTA's workspace slot of a share of a cut unit (0: the CTA's first
+        unit, 1: its last), None for a whole unit."""
+        for i in range(self.ctas):
+            lo, hi = self.first(i), self.first(i + 1)
+            s = lo
+            while s < hi:
+                u = s // self.k_steps
+                end = min(hi, (u + 1) * self.k_steps)
+                whole = s == u * self.k_steps and end == (u + 1) * self.k_steps
+                slot = None if whole else (0 if u == lo // self.k_steps
+                                           else 1)
+                yield (i, u, s - u * self.k_steps, end - u * self.k_steps,
+                       slot)
+                s = end
+
+    def describe(self) -> str:
+        """One line: CTAs, stages a CTA, and how many CTAs share a unit."""
+        shares: dict = {}
+        for _, u, *_ in self.segments():
+            shares[u] = shares.get(u, 0) + 1
+        lo, hi = min(shares.values()), max(shares.values())
+        return (f"{self.ctas} CTAs x {self.steps / self.ctas:.1f} stages of "
+                f"{self.bk} rows; {self.units} units of {self.k_steps} "
+                f"stages, {lo}-{hi} CTAs a unit")
+
+
+def stream_plan(n_tiles: int, tile_m: int, d: int, f: int, n_sms: int,
+                elem_size: int) -> StreamPlan:
+    """The weight stream's plan, a pure function of the shape and the
+    card's SM count: one CTA a streaming multiprocessor (CTAs with no
+    stage, where there are fewer stages than SMs, exit at once)."""
+    if not 1 <= tile_m <= STREAM_MAX_ROWS:
+        raise ValueError(f"the weight stream takes tile_m 1-16, got {tile_m}")
+    bk = STREAM_BK[elem_size]
+    return StreamPlan(ctas=n_sms, rows=8 if tile_m <= 8 else 16,
+                      units=n_tiles * -(-f // STREAM_BN),
+                      k_steps=-(-d // bk), bk=bk)
+
+
+def stream_workspace(plan: StreamPlan, device) -> torch.Tensor:
+    """The launch's workspace: uninitialised bytes (a counter that does not
+    carry the launch's :func:`call_token` counts as zero)."""
+    return torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
+
+
+# a random 16-bit salt, nonzero, over a 32-bit sequence of this process
+_SALT = 1 + int.from_bytes(os.urandom(2), "little") % 0xffff
+_CALLS = itertools.count(1)
+
+
+def call_token() -> int:
+    """A weight-stream launch's 48-bit token (``csrc``'s ``sk::arrive``):
+    no two calls of this process share one, and the salt keeps it far
+    from the small integers that tensors leave in memory."""
+    return _SALT << 32 | next(_CALLS) & 0xffffffff
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor, *,
+                tile_m: int) -> StreamPlan | None:
+    """The :class:`StreamPlan` of a launch on these CUDA operands (w as
+    stored), or None where the tiles are wider than the stream's."""
+    if tile_m > STREAM_MAX_ROWS:
+        return None
+    return stream_plan(x.shape[0] // tile_m, tile_m, x.shape[1], w.shape[2],
+                       _sm_count(x.device.index), x.element_size())
 
 
 def _launch_operands(x, w, tile_m: int, trans_w: bool):
@@ -169,9 +293,17 @@ def _group_matmul_cuda(x, expert_of_tile, w, tile_m, trans_w=False):
     if out.numel():
         symbol = ("group_matmul_f32" if x.dtype == torch.float32
                   else "group_matmul_bf16")
-        fn = _build.bind("group_matmul", symbol, 4, 6)
+        fn = _build.bind("group_matmul", symbol, 5, 7, n_u64=1)
+        # every launch of tiles this narrow gets the stream's workspace
+        # (the scalar stream ignores it); made for this call alone, so
+        # ranks that launch at once share nothing
+        plan = launch_plan(x, w, tile_m=tile_m)
+        ws = None if plan is None else stream_workspace(plan, x.device)
         err = fn(x.data_ptr(), eid.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
                  t // tile_m, tile_m, d, f, w.shape[0], int(trans_w),
+                 0 if plan is None else plan.ctas,
+                 0 if plan is None else call_token(),
                  torch.cuda.current_stream(x.device).cuda_stream)
         _build.check_launch(symbol, err)
         with _COUNT_LOCK:      # ranks run as threads launch it at once

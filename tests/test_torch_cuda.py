@@ -7,6 +7,8 @@ without JAX::
 
 Without a CUDA device every test here skips.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -177,9 +179,9 @@ def test_cuda_group_matmul_errors(cuda_device):
 
 
 # Each case reaches one launch variant of csrc/group_matmul.cu by name: the
-# weight stream for tile_m <= 8 ("stream8") and <= 16 ("stream16") with the
-# wide (16- or 8-byte) weight loads when f allows them ("vec") or scalar
-# loads ("scalar"); for wider bf16 tiles whose d and f are multiples of 8
+# weight stream for tile_m <= 8 ("stream8") and <= 16 ("stream16"), its TMA
+# ring when d and f are multiples of 16 bytes and x, w 16-byte aligned
+# ("tma") or scalar loads ("scalar"); for wider bf16 tiles whose d and f are multiples of 8
 # the tensor-core shape, 64-row ("tc64", tile_m <= 64) or 128-row ("tc128")
 # blocks of one tile; for the other wide tiles (f32, or bf16 that the TMA
 # cannot take) the 128 x 128 tiled shape.  A last field True runs the case
@@ -190,14 +192,18 @@ def test_cuda_group_matmul_errors(cuda_device):
 # every tile, "bad" an out-of-range id in the middle of a run.
 GM_VARIANTS = [
     # variant, dtype, tiles, tile_m, d, f, experts, ids, trans_w
-    ("stream8_vec", torch.bfloat16, 5, 1, 64, 256, 3, "mixed", False),
-    ("stream8_vec", torch.bfloat16, 4, 8, 4100, 512, 4, "mixed", False),
-    ("stream8_vec", torch.float32, 3, 4, 1500, 132, 2, "mixed", False),
+    ("stream8_tma", torch.bfloat16, 5, 1, 64, 256, 3, "mixed", False),
+    ("stream8_scalar", torch.bfloat16, 4, 8, 4100, 512, 4, "mixed", False),
+    ("stream8_tma", torch.float32, 3, 4, 1500, 132, 2, "mixed", False),
     ("stream8_scalar", torch.bfloat16, 4, 8, 4100, 130, 4, "mixed", False),
     ("stream8_scalar", torch.float32, 6, 8, 300, 9, 3, "bad", False),
-    ("stream16_vec", torch.bfloat16, 3, 16, 4500, 260, 3, "mixed", False),
-    ("stream16_vec", torch.float32, 2, 12, 2100, 64, 2, "bad", False),
+    ("stream8_tma", torch.bfloat16, 4, 8, 4096, 520, 4, "bad", False),
+    ("stream16_scalar", torch.bfloat16, 3, 16, 4500, 260, 3, "mixed", False),
+    ("stream16_tma", torch.float32, 2, 12, 2100, 64, 2, "bad", False),
     ("stream16_scalar", torch.bfloat16, 3, 16, 1000, 65, 2, "mixed", False),
+    ("stream16_tma", torch.bfloat16, 3, 16, 4504, 264, 3, "mixed", False),
+    ("stream16_tma", torch.bfloat16, 5, 9, 1000, 200, 2, "runs", False),
+    ("stream8_tma+copy", torch.bfloat16, 4, 8, 512, 200, 3, "mixed", True),
     ("tiled_vec", torch.float32, 12, 24, 200, 256, 3, "runs", False),
     ("tiled_vec", torch.float32, 16, 32, 136, 260, 3, "mixed", False),
     ("tiled_vec", torch.float32, 6, 64, 96, 128, 2, "bad", False),
@@ -242,9 +248,10 @@ def _expert_ids(pattern, tiles, e, rng):
 def test_cuda_group_matmul_launch_variants(cuda_device, variant, dtype, tiles,
                                            tile_m, d, f, e, ids, trans_w):
     """Every launch variant of the grouped-matmul kernel against the plain
-    version: tile_m 1 to 130, aligned and unaligned f, d past the stream
-    shape's shared-memory slab of x (4096 bf16 / 1024 f32 rows at 8 rows,
-    2048 / 1024 at 16), d and f multiples of 8 but not of the tensor-core
+    version: tile_m 1 to 130, aligned and unaligned f, d past the scalar
+    stream's shared-memory slab of x (4096 bf16 / 1024 f32 rows at 8 rows,
+    2048 / 1024 at 16), d and f multiples of 8 but not of a ring stage's
+    rows or of the 128-column unit (the TMA stream) or of the tensor-core
     shape's 64-deep slice or 256-column block, tiles of one CTA with equal
     and with different expert ids, NaN rows for an out-of-range id, and w
     in both layouts; one launch a call."""
@@ -260,10 +267,9 @@ def test_cuda_group_matmul_launch_variants(cuda_device, variant, dtype, tiles,
             tile_m > 16 and not tensor_cores)
     if shape == "tiled":
         assert (d % 4 == 0 and f % 4 == 0) == (load == "vec")
-    elif shape.startswith("stream"):   # 16 bytes a lane, or 8 (bf16, R 16)
-        wide = f % (8 if (shape, dtype) == ("stream8", torch.bfloat16)
-                    else 4) == 0
-        assert wide == (load == "vec")
+    elif shape.startswith("stream"):   # the TMA's 16-byte strides
+        v = 16 // (torch.finfo(dtype).bits // 8)
+        assert (d % v == 0 and f % v == 0) == (load == "tma")
     assert variant.endswith("+copy") == (trans_w and
                                          not shape.startswith("tc"))
     rng = np.random.default_rng(tiles * 1000 + tile_m + d + f)
@@ -325,6 +331,178 @@ def test_cuda_group_matmul_tensor_cores_repeat_bit_equal(cuda_device,
         first = group_matmul(x, eid, w, tile_m=tile_m, trans_w=tw)
         assert torch.equal(first, group_matmul(x, eid, w, tile_m=tile_m,
                                                trans_w=tw))
+
+
+#: the serving rows' expert products (bf16, 8-row tiles, one a expert):
+#: experts, d, f (Phi-3.5-MoE's wg / wo, whole and a [mesh] rank's 8
+#: experts; DeepSeek-V2-Lite's, whole and a rank's 32)
+STREAM_SERVING = {
+    "phi-wg": (16, 4096, 6400), "phi-wo": (16, 6400, 4096),
+    "phi-mesh-wg": (8, 4096, 6400), "phi-mesh-wo": (8, 6400, 4096),
+    "deepseek-wg": (64, 2048, 1408), "deepseek-wo": (64, 1408, 2048),
+    "deepseek-mesh-wg": (32, 2048, 1408),
+    "deepseek-mesh-wo": (32, 1408, 2048),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1, 7], ids=["decode", "prefill"])
+@pytest.mark.parametrize("name", list(STREAM_SERVING))
+def test_cuda_group_matmul_stream_serving_shapes(cuda_device, name,
+                                                 capacity):
+    """Each serving row's decode (capacity 1) and prefill (capacity 7)
+    product on the TMA weight stream against the plain version within the
+    reference's bf16 limit (2e-2: bf16 products are exact in f32, only
+    the order of the sum differs)."""
+    from repro_torch.kernels.group_matmul import launch_plan, launch_shape
+    e, d, f = STREAM_SERVING[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(e + d)
+    xe = torch.randn((e, capacity, d), generator=gen, device=cuda_device
+                     ).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=cuda_device)
+         * d ** -0.5).to(torch.bfloat16)
+    x = torch.nn.functional.pad(xe, (0, 0, 0, 8 - capacity)).reshape(
+        e * 8, d)
+    eid = torch.arange(e, dtype=torch.int32, device=cuda_device)
+    assert launch_shape(x, w, tile_m=8) == "stream8_tma"
+    plan = launch_plan(x, w, tile_m=8)
+    assert plan.ctas >= torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    got = group_matmul(x, eid, w, tile_m=8)
+    want = group_matmul_plain(x, eid, w, tile_m=8)
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_m", range(1, 17))
+def test_cuda_group_matmul_stream_tile_heights(cuda_device, tile_m, dtype):
+    """The TMA weight stream at every tile height, with f (200) not a
+    multiple of the 128-column unit and d (1000) not a multiple of a ring
+    stage's rows (64 bf16, 32 f32), units cut over several CTAs and expert
+    ids changing from tile to tile, against the plain version: f32 by FMA
+    within the reference benchmark's 1e-4, bf16 within 2e-2."""
+    from repro_torch.kernels.group_matmul import launch_shape
+    rng = np.random.default_rng(tile_m)
+    tiles, d, f, e = 5, 1000, 200, 3
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+                        dtype=dtype, device=cuda_device)
+    eid = torch.as_tensor(_expert_ids("mixed", tiles, e, rng),
+                          device=cuda_device)
+    assert launch_shape(x, w, tile_m=tile_m) == (
+        "stream8_tma" if tile_m <= 8 else "stream16_tma")
+    got = group_matmul(x, eid, w, tile_m=tile_m)
+    want = group_matmul_plain(x, eid, w, tile_m=tile_m)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_matmul_stream_bad_ids(cuda_device, dtype):
+    """Out-of-range expert ids (negative and past the experts) give NaN
+    rows on the TMA weight stream, also where their units are cut over
+    several CTAs, and leave the other tiles' sums as the plain version's."""
+    rng = np.random.default_rng(11)
+    tiles, tile_m, d, f, e = 6, 8, 2048, 264, 3
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+                        dtype=dtype, device=cuda_device)
+    eid = torch.tensor([0, -1, 2, 3, 1, 7], dtype=torch.int32,
+                       device=cuda_device)
+    got = group_matmul(x, eid, w, tile_m=tile_m)
+    bad = ((eid < 0) | (eid >= e)).repeat_interleave(tile_m)
+    assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
+    want = group_matmul_plain(x, eid, w, tile_m=tile_m)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[~bad], want[~bad], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_m,d,f", [(8, 4096, 1408), (16, 1000, 200)])
+def test_cuda_group_matmul_stream_repeat_bit_equal(cuda_device, dtype,
+                                                   tile_m, d, f):
+    """Two calls of the TMA weight stream give the same bits: a unit's
+    shares are added in the contraction's order whichever CTA arrives
+    last (integer counters, no float atomics)."""
+    rng = np.random.default_rng(d)
+    tiles, e = 7, 4
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+                        dtype=dtype, device=cuda_device)
+    eid = torch.as_tensor(rng.integers(0, e, tiles), dtype=torch.int32,
+                          device=cuda_device)
+    first = group_matmul(x, eid, w, tile_m=tile_m)
+    for _ in range(3):
+        assert torch.equal(first, group_matmul(x, eid, w, tile_m=tile_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_matmul_stream_graph_replays(cuda_device, dtype):
+    """A CUDA graph of TMA weight-stream launches (each carrying its
+    captured call token, the same at every replay) gives the eager
+    launch's bits at every replay: the last share of a unit sets its
+    counter back to zero."""
+    rng = np.random.default_rng(5)
+    tiles, tile_m, d, f, e = 9, 8, 1000, 392, 3
+    x = torch.as_tensor(rng.standard_normal((tiles * tile_m, d)),
+                        dtype=dtype, device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)) / np.sqrt(d),
+                        dtype=dtype, device=cuda_device)
+    eid = torch.as_tensor(rng.integers(0, e, tiles), dtype=torch.int32,
+                          device=cuda_device)
+    want = group_matmul(x, eid, w, tile_m=tile_m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        group_matmul(x, eid, w, tile_m=tile_m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [group_matmul(x, eid, w, tile_m=tile_m) for _ in range(3)]
+    for _ in range(4):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, want) for out in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", bench_kernels.STREAM_EXACT_CASES,
+                         ids=[f"t{c[1]}-d{c[2]}-f{c[3]}-{c[5]}"
+                              for c in bench_kernels.STREAM_EXACT_CASES])
+def test_cuda_group_matmul_stream_exact(cuda_device, case):
+    """The TMA weight stream on integer-valued operands (|x|, |w| <= 8:
+    every sum exact in f32, in any order) equals the plain version bit
+    for bit: a wrong fragment, swizzle, share or slot moves some output by
+    a whole unit."""
+    shapes = bench_kernels.stream_exact(cuda_device, cases=(case,))
+    assert len(shapes) == 2
+    tma = "stream8_tma" if case[1] <= 8 else "stream16_tma"
+    assert sorted(shapes.values()) == [tma, tma + "+copy"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,tile_m,f", [(16, 8, 6400), (64, 8, 1408),
+                                            (3, 13, 200), (70000, 8, 8)])
+def test_cuda_group_matmul_stream_workspace(cuda_device, tiles, tile_m, f):
+    """The wrapper's workspace (StreamPlan.workspace_bytes) is the size
+    the CUDA source lays out."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.group_matmul import stream_plan
+    fn = _build.load("group_matmul").group_matmul_stream_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = stream_plan(tiles, tile_m, 64, f, sms, 2)
+    assert fn(tiles, tile_m, f, plan.ctas) == plan.workspace_bytes
 
 
 @pytest.mark.cuda
