@@ -7,8 +7,18 @@ Phases (any failure raises and the script exits non-zero):
 1. build every CUDA kernel under ``src/repro_torch/csrc`` with ``nvcc``
    (in parallel) and print the build seconds and ptxas reports;
 2. print the card's name and power limit, and turn TF32 off;
+   then the engine chunk (``[cycle]``, :func:`run_cycle`): grid A's batch
+   and the chain's, at both speeds, stepped from one initial state by
+   the kernel ``csrc/cycle.cu`` (``kernels.cycle.cycle_chunk``) and by
+   its plain version in 512-tick chunks, every leaf of the state equal
+   bit for bit after each of the first two chunks; the kernel's chunk
+   timed with CUDA events beside the plain version's and its bound;
 3. the simulator and kernel-leg path, every launch count set to 0 just
-   before it and read just after: the paper grids (grid A: 13 workloads x
+   before it and read just after (``cycle_chunk``'s before and after each
+   of ``[sim]``, ``[sweep]``, ``[service]``, ``[figures]`` and
+   ``[shard]``, each of which must have stepped its engine chunks on the
+   kernel, and ``[static]``, which must not: the static golden engines
+   are oracles that run the plain loop): the paper grids (grid A: 13 workloads x
    nexus/tia/tia_valiant at 4x4; grid B: spmv/sddmm/bfs under nexus at
    2x2, 4x4, 8x8) through ``repro_torch.bench.harness``, then the
    ``bcsr_spmm``, ``sddmm`` and ``group_matmul`` benchmark legs in f32 and
@@ -26,10 +36,9 @@ Phases (any failure raises and the script exits non-zero):
    legs run through ``repro_torch.core.sweep.sweep(..., device="cuda")``
    and are held to ``src/repro_torch/golden/sweeps.json`` (every lane bit
    for bit, the packing schedule and the engine telemetry field for
-   field): the 256-node pointer chase (8 lanes at 8x8) on the
-   fast-forward and on the plain engine, and a packed leg with a
-   per-lane deadline (:data:`SWEEP_LEGS`: the packed Fig. 17 grid of
-   ``sweeps.json`` was cut for time); each prints its wall, engine ticks, lane-cycles/s,
+   field): the packed Fig. 17 grid, the 256-node pointer chase (8 lanes
+   at 8x8) on the fast-forward and on the plain engine, and a packed leg
+   with a per-lane deadline (:data:`SWEEP_LEGS`); each prints its wall, engine ticks, lane-cycles/s,
    dead-step fraction, waves, packing efficiency and peak memory.  After
    the ``[sweep]`` legs, the ``[service]`` phase drives the resident
    sweep service (``repro_torch.serve.SweepService``) on the card: the
@@ -221,7 +230,9 @@ Phases (any failure raises and the script exits non-zero):
    a CTA, CTAs a unit); compute each kernel's bound from the bytes and FLOPs its
    data needs, its share of that bound (``bound_share``) and its time
    over the library call's (``vs_library``);
-14. print the kernels line (a row per leg with the legs' launches,
+14. print the kernels line (a row per leg with the legs' launches, a
+   ``cycle_chunk`` row (the ``[cycle]`` timings, the ``[sim]`` grids'
+   launches and every phase's),
    ``bcsr_spmm``'s with the cluster split ``S`` its wrapper launched, a
    ``group_matmul_serve`` row at Phi's decode shape, with ``wo`` and the
    prefill's ``prefill_wg`` / ``prefill_wo`` in it, with the serving
@@ -269,7 +280,8 @@ from repro_torch.bench import (bench_ci, fig11_performance,  # noqa: E402
 from repro_torch.bench import dryrun_check  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
-from repro_torch.bench.profile_engine import (grid_a_engine,  # noqa: E402
+from repro_torch.bench.profile_engine import (chain_batch,  # noqa: E402
+                                              grid_a_batch, grid_a_engine,
                                               profile_ticks)
 from repro_torch.bench.profile_train import FAMILY_LEGS  # noqa: E402
 from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
@@ -283,6 +295,9 @@ from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.kernels import (_build, bcsr_spmm, group_matmul,  # noqa: E402
                                  group_matmul_plain, sddmm_blocks)
 from repro_torch.kernels.bcsr_spmm import launch_split  # noqa: E402
+from repro_torch.kernels.cycle import (  # noqa: E402
+    chunk_bytes, clone_state, cycle_chunk, cycle_chunk_plain,
+    first_difference)
 from repro_torch.kernels.group_matmul import (  # noqa: E402
     expert_product, launch_plan, launch_shape, tile_by_expert)
 from repro_torch.launch import dryrun, serve  # noqa: E402
@@ -326,12 +341,10 @@ TRAIN_RECORD_STEP = 1
 #: seeded tokens
 ENCODE_FRAMES = (2, 512)
 VISION_TOKENS = 16
-#: the ``[sweep]`` legs of ``golden.SWEEPS`` run here: the packed Fig. 17
-#: grid (116-189 s, the longest leg) was cut when the ``[mesh]`` phase
-#: took the script past 600 s; packing stays on the card in the packed
-#: deadline leg, and ``tests/test_torch_packing.py`` holds packed sweeps
-#: to the reference's on the CPU
-SWEEP_LEGS = ("chain", "deadline")
+#: the ``[sweep]`` legs of ``golden.SWEEPS`` run here: every leg, since
+#: the engine chunk kernel took the packed Fig. 17 grid (116-189 s on the
+#: torch-op engine, cut from the script until then) to seconds
+SWEEP_LEGS = ("fig17", "chain", "deadline")
 #: the bf16 tolerance of a recorded expert product against its plain
 #: version: elementwise (rtol = atol) and, since a backward's dx is many
 #: orders of magnitude below 1, also max |err| over max |plain|
@@ -1373,9 +1386,120 @@ def run_static() -> dict:
                    "wall_ms_per_tick", "device_ms_per_tick",
                    "kernel_launches_per_tick")})
     print(f"[static] {len(lanes)} nexus lanes of grid A on the static engine "
-          f"match the golden records, final state idle; {json.dumps(row)}",
-          flush=True)
+          "(an oracle: its chunks run the plain loop, cycle_chunk_plain, "
+          "not the kernel) match the golden records, final state idle; "
+          f"{json.dumps(row)}", flush=True)
     return row
+
+
+#: the ``[cycle]`` phase: the engine's chunk, and the chunks compared
+CYCLE_TICKS = 512
+CYCLE_CHUNKS = 2
+
+
+def _copy_state(dst, src) -> None:
+    for k in machine.MachineState._fields:
+        getattr(dst, k).copy_(getattr(src, k))
+
+
+def _event_ms(fn) -> float:
+    """Milliseconds between CUDA events recorded around ``fn()``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def run_cycle(reps: int = 11) -> dict:
+    """The ``[cycle]`` phase: grid A's batch (39 lanes at 4x4) and the
+    chain's (8 lanes of the 256-node pointer chase at 8x8), each at both
+    speeds, stepped from one initial state by ``cycle_chunk`` (the
+    kernel) and by ``cycle_chunk_plain`` at the engine's chunk, every
+    leaf compared after each of the first two chunks.  Then the kernel's
+    time for a chunk of grid A's first 512 ticks (CUDA-event median of
+    ``reps`` launches, the initial state copied back before each) and
+    for the chain's compressed chunk, beside the plain version's first
+    chunk (CUDA events around its ~900 launches a tick, as context) and
+    the bound: the bytes the timed chunk's data must move
+    (``kernels.cycle.chunk_bytes``: the per-PE leaves once, the queue rows
+    pushed and popped, the memory words changed) at the card's memory
+    rate, a floor; the kernel itself is bound by the latency of a tick's
+    dependent loads and barriers.  Every leaf is bit-equal or the phase
+    fails, so ``max_abs_err`` is 0.  Returns the ``cycle_chunk`` row of
+    the kernels line (``launches`` filled in by the main path)."""
+    dev = torch.device("cuda")
+    batches = {"grid_a": grid_a_batch(dev), "chain": chain_batch(dev)}
+    legs = {}
+    for name, (cfg, args, st0) in batches.items():
+        for ff in (True, False):
+            speed = "ff" if ff else "plain"
+            st = {"plain": clone_state(st0), "kernel": clone_state(st0)}
+            leg = dict(lanes=int(st0.cycle.shape[0]),
+                       pes=int(st0.cycle.shape[1]), plain_ms=[],
+                       kernel_ms=[], max_cycle=[])
+            for i in range(CYCLE_CHUNKS):
+                for key, fn in (("plain", cycle_chunk_plain),
+                                ("kernel", cycle_chunk)):
+                    def chunk():
+                        st[key] = fn(cfg, *args, st[key], ticks=CYCLE_TICKS,
+                                     fast_forward=ff)
+                    leg[f"{key}_ms"].append(_event_ms(chunk))
+                diff = first_difference(st["plain"], st["kernel"])
+                if diff is not None:
+                    raise AssertionError(f"[cycle] {name} ({speed}) chunk "
+                                         f"{i}: {diff}")
+                leg["max_cycle"].append(int(st["kernel"].cycle.max()))
+            legs[f"{name}/{speed}"] = leg
+            print(f"[cycle] {name} ({speed}): the kernel equals the plain "
+                  f"version on every leaf after each of {CYCLE_CHUNKS} "
+                  f"chunks of {CYCLE_TICKS} ticks; {json.dumps(leg)}",
+                  flush=True)
+
+    def median_ms(name, ff):
+        cfg, args, st0 = batches[name]
+        work = clone_state(st0)
+        times = []
+        for _ in range(reps):
+            _copy_state(work, st0)
+            times.append(_event_ms(lambda: cycle_chunk(
+                cfg, *args, work, ticks=CYCLE_TICKS, fast_forward=ff)))
+        return statistics.median(times), times, work
+
+    ms, times, after = median_ms("grid_a", False)
+    chain_ms, _, _ = median_ms("chain", True)
+    cfg, args, st0 = batches["grid_a"]
+    nbytes = chunk_bytes(cfg, args, st0, after)
+    row = dict(name="cycle_chunk", route="cuda",
+               source="src/repro_torch/csrc/cycle.cu",
+               replaces="src/repro/core/machine.py:1328 (no Pallas kernel: "
+                        "engine_fn's lax.scan chunk)",
+               launches=None, max_abs_err=0, ms=ms,
+               plain_ms=legs["grid_a/plain"]["plain_ms"][0],
+               **bound(nbytes, 0, torch.int32), library_ms=None,
+               bound_is="a floor: the bytes this chunk's data moves at "
+                        "least (chunk_bytes); the kernel is latency-bound",
+               ticks=CYCLE_TICKS, lanes=int(st0.cycle.shape[0]),
+               ms_per_tick=ms / CYCLE_TICKS, ms_spread=[min(times),
+                                                        max(times)],
+               chain_ff_ms=chain_ms, bytes=nbytes, legs=legs)
+    print(f"[cycle] {json.dumps(row)}", flush=True)
+    return row
+
+
+def chunk_launches(phase: str, t0: float) -> int:
+    """``cycle_chunk``'s launches since the count was last set to 0 (it
+    is set to 0 again), printed with the phase's seconds since ``t0``:
+    the phase must have stepped its engine chunks on the kernel."""
+    n, cycle_chunk.launches = cycle_chunk.launches, 0
+    if n <= 0:
+        raise AssertionError(f"{phase} the engine chunk kernel was not "
+                             "launched")
+    print(f"{phase} cycle_chunk launched {n} times; phase "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return n
 
 
 def run_sparse() -> dict:
@@ -2282,12 +2406,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # --- the engine chunk: the kernel against its plain version -------------
+    t_cyc = time.time()
+    cycle_row = run_cycle()
+    print(f"[cycle] phase {time.time() - t_cyc:.1f} s", flush=True)
+
     # --- the simulator and kernel-leg path, launch counts from zero ----------
+    # (the engine chunk's count from zero before each simulator phase)
     for meta in KERNELS.values():
         meta["wrapper"].launches = 0
+    cycle_chunk.launches = 0
+    t_ph = time.time()
     sim, grid_a = run_grids()
+    chunks = {"[sim]": chunk_launches("[sim]", t_ph)}
+    t_ph = time.time()
     sim["sweeps"] = run_sweeps()
+    chunks["[sweep]"] = chunk_launches("[sweep]", t_ph)
+    t_ph = time.time()
     sim["service"] = run_service()
+    chunks["[service]"] = chunk_launches("[service]", t_ph)
     errs = bench_kernels.main(device="cuda")
     torch.cuda.synchronize()
     launches = {n: m["wrapper"].launches for n, m in KERNELS.items()}
@@ -2308,9 +2445,10 @@ def main() -> int:
 
     # --- the paper-figure drivers over grid A's rows ------------------------
     t_fig = time.time()
+    cycle_chunk.launches = 0
     figures = run_figures(grid_a)
+    chunks["[figures]"] = chunk_launches("[figures]", t_fig)
     del grid_a
-    print(f"[figures] phase {time.time() - t_fig:.1f} s", flush=True)
 
     # --- the serving path, launch counts from zero ---------------------------
     served, calls = run_serve()
@@ -2360,14 +2498,19 @@ def main() -> int:
 
     # --- the static golden engine and the scale layer's oracles -------------
     t_st = time.time()
+    cycle_chunk.launches = 0
     static = run_static()
+    if cycle_chunk.launches:
+        raise AssertionError("[static] the static engine launched the "
+                             "engine chunk kernel")
     print(f"[static] phase {time.time() - t_st:.1f} s", flush=True)
     sparse_row = run_sparse()
 
     # --- the multi-device slice on logical shards of the card ---------------
     t_sh = time.time()
+    cycle_chunk.launches = 0
     shard_rows = run_shard()
-    print(f"[shard] phase {time.time() - t_sh:.1f} s", flush=True)
+    chunks["[shard]"] = chunk_launches("[shard]", t_sh)
     t_am = time.time()
     dispatch_rows = run_dispatch()
     print(f"[dispatch] phase {time.time() - t_am:.1f} s", flush=True)
@@ -2398,6 +2541,9 @@ def main() -> int:
     rows = check_kernels(errs)
     for row in rows:
         row["launches"] = launches[row["name"]]
+    # the engine chunk's launches on the main path: the grids' run
+    rows.append(shares(dict(cycle_row, launches=chunks["[sim]"],
+                            launches_by_phase=chunks)))
     rows.append(serve_row)
     rows += train_rows
     rows.append(deepseek_row)
@@ -2433,7 +2579,10 @@ def main() -> int:
                 "choices_compared")} for key, v in (
                     ("serve", mesh_served), ("deepseek", mesh_deepseek))},
             "reduced": mesh_reduced, "families": mesh_families},
-        "dryrun": dry, "figures": figures}))
+        "dryrun": dry, "figures": figures, "cycle": {
+            k: cycle_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "chain_ff_ms", "legs")},
+        "cycle_chunk_launches": chunks}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,19 +68,35 @@ class EngineCalls:
     """Wraps ``machine._get_engine`` so that the engines it hands out keep
     the outputs ``(st, over, idle, ticks)`` of every call in
     ``self.outs`` (lists with an entry per shard from a sharded
-    engine)."""
+    engine) and, given ``timed_on`` (devices), each call's seconds in
+    ``self.seconds``, the devices synchronised before and after it.  As a
+    context manager it installs itself for the block."""
 
-    def __init__(self):
-        self.inner, self.outs = machine._get_engine, []
+    def __init__(self, timed_on=None):
+        self.inner, self.outs, self.seconds = machine._get_engine, [], []
+        self.timed_on = timed_on
 
     def __call__(self, *args, **kw):
         engine = self.inner(*args, **kw)
 
         def run(*a):
+            if self.timed_on:
+                sync(self.timed_on)
+                t0 = time.perf_counter()
             out = engine(*a)
+            if self.timed_on:
+                sync(self.timed_on)
+                self.seconds.append(time.perf_counter() - t0)
             self.outs.append(out)
             return out
         return run
+
+    def __enter__(self):
+        machine._get_engine = self
+        return self
+
+    def __exit__(self, *exc):
+        machine._get_engine = self.inner
 
 
 def run_shard(devs: list, service_devs: list, *, tag: str = "[shard]",

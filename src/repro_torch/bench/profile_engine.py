@@ -22,6 +22,21 @@ instead (8 lanes of a scrambled 256-node pointer chase at 8x8) on the
 compressed tick and on the plain tick (each after the same 32 warm-up
 ticks from the leg's initial state), and prints one JSON line with both
 records.
+
+``--kernel`` profiles grid A and the chain (both speeds) on the engine
+chunk kernel (``kernels.cycle.cycle_chunk``, ``csrc/cycle.cu``): after
+one warm-up chunk of :data:`KERNEL_CHUNK` ticks, :data:`KERNEL_CHUNKS`
+chunks timed with CUDA events (a pair a chunk) and on the host clock and
+as many more under ``torch.profiler`` (all inside the runs' busy
+stretch), each beside the torch-op reading of the same batch; one JSON
+line with the wall and device milliseconds a tick and the launches a
+chunk.
+
+``--chase`` times ``bench_ci``'s pointer-chase leg (8 lanes of a
+512-node chase at 8x8, chunk 512) through ``sweep`` on both speeds, each
+warmed first: the sweep's wall, the engine calls' seconds (synchronised
+around each call) and the chunk kernel's launches, so that the wall's
+share outside the engine shows.
 """
 from __future__ import annotations
 
@@ -42,11 +57,36 @@ from repro_torch.core.batch import stack_workloads
 from repro_torch.core.fastforward import make_fast_forward
 
 
-def grid_a_engine(device, modes=None, static: bool = False):
-    """The grid-A batch (its lanes of ``modes``, by default all three),
-    ready to step: ``(step, st, lanes)`` where ``step(st)`` is one engine
-    tick; ``static`` steps the static golden engine, whose config bakes in
-    the one mode of ``modes`` and the 4x4 mesh."""
+#: ``--kernel``'s chunk and the chunks timed (and profiled) after one
+#: warm-up chunk: 640 ticks in all, inside grid A's and the chain's work
+KERNEL_CHUNK, KERNEL_CHUNKS = 128, 2
+
+
+def _lane_args(cfg, wb, device):
+    """The engine's lane arguments and initial state of batch ``wb``:
+    ``(args, st)`` with ``args`` = (prog, modes, geoms, sub_ids,
+    local_ids, cycle0, budget) as :func:`machine._step` and
+    :func:`repro_torch.kernels.cycle.cycle_chunk` take them (no sub-lanes,
+    an unbounded budget)."""
+    n = wb.n_pes
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    st = machine.init_state(cfg, wb.static_ams, wb.amq_len, wb.mem_val,
+                            wb.mem_meta, device=device)
+    modes = (np.full((wb.batch,), machine.mode_code(cfg)) if wb.modes is None
+             else wb.modes)
+    args = (t(wb.prog), t(modes), t(wb.geoms), t(np.zeros((wb.batch, n))),
+            t(np.tile(np.arange(n), (wb.batch, 1))), st.cycle.clone(),
+            t(machine.unbounded_budget(wb.batch, n)))
+    return args, st
+
+
+def grid_a_batch(device, modes=None, static: bool = False):
+    """The grid-A batch (its lanes of ``modes``, by default all three):
+    ``(cfg, args, st)``; ``static`` gives the static golden engine's
+    config, which bakes in the one mode of ``modes`` and the 4x4 mesh."""
     wls = golden.grid_workloads(golden.GRIDS["grid_a"], make_all())
     modes = list(machine.FABRIC_MODES) if modes is None else list(modes)
     built = [wl.build(machine.MachineConfig(mem_words=wl.mem_words),
@@ -60,49 +100,41 @@ def grid_a_engine(device, modes=None, static: bool = False):
                                   traced_geometry=False,
                                   **machine.mode_flags(mode))
     wb = stack_workloads(built, modes=lane_modes)
-    n = wb.n_pes
+    return (cfg, *_lane_args(cfg, wb, device))
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    st = machine.init_state(cfg, wb.static_ams, wb.amq_len, wb.mem_val,
-                            wb.mem_meta, device=device)
-    cyc = machine._make_cycle(cfg, n)
-    args = (t(wb.prog), t(wb.modes), t(wb.geoms),
-            t(np.zeros((wb.batch, n))),
-            t(np.tile(np.arange(n), (wb.batch, 1))), st.cycle.clone(),
-            t(np.full((wb.batch, n), machine.ENGINE_UNBOUNDED)))
+def chain_batch(device):
+    """The chain leg's batch (8 lanes of a 256-node pointer chase at
+    8x8): ``(cfg, args, st)``."""
+    cfg, kw, _ = golden.port_sweep_leg("chain")
+    return (cfg, *_lane_args(cfg, stack_workloads(kw["workloads"]), device))
+
+
+def grid_a_engine(device, modes=None, static: bool = False):
+    """The grid-A batch ready to step: ``(step, st, lanes)`` where
+    ``step(st)`` is one torch-op engine tick (see :func:`grid_a_batch`)."""
+    cfg, args, st = grid_a_batch(device, modes, static)
+    cyc = machine._make_cycle(cfg, st.cycle.shape[1])
 
     def step(s):
         return machine._step(cyc, cfg, *args, s)
 
-    return step, st, wb.batch
+    return step, st, st.cycle.shape[0]
 
 
 def chain_engine(device, fast_forward: bool):
     """The chain leg's batch, ready to step: ``(step, st, lanes)``, one
-    tick of the compressed engine when ``fast_forward`` else of the
-    plain one."""
-    cfg, kw, _ = golden.port_sweep_leg("chain")
-    wb = stack_workloads(kw["workloads"])
-    n = wb.n_pes
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
-
-    st = machine.init_state(cfg, wb.static_ams, wb.amq_len, wb.mem_val,
-                            wb.mem_meta, device=device)
+    torch-op tick of the compressed engine when ``fast_forward`` else of
+    the plain one."""
+    cfg, args, st = chain_batch(device)
+    n = st.cycle.shape[1]
     cyc = machine._make_cycle(cfg, n)
     ffwd = make_fast_forward(cfg, n) if fast_forward else None
-    args = (t(wb.prog), t(np.full((wb.batch,), machine.mode_code(cfg))),
-            t(wb.geoms), t(np.zeros((wb.batch, n))),
-            t(np.tile(np.arange(n), (wb.batch, 1))), st.cycle.clone(),
-            t(machine.unbounded_budget(wb.batch, n)))
 
     def step(s):
         return machine._step(cyc, cfg, *args, s, ffwd)
 
-    return step, st, wb.batch
+    return step, st, st.cycle.shape[0]
 
 
 def profile_ticks(step, st, lanes, ticks: int, dev) -> dict:
@@ -148,6 +180,100 @@ def profile_ticks(step, st, lanes, ticks: int, dev) -> dict:
                         for e in top])
 
 
+def profile_chunks(cfg, args, st, chunk: int, chunks: int,
+                   fast_forward: bool, dev) -> dict:
+    """Warm the engine chunk kernel up with one chunk, then step
+    ``chunks`` chunks of ``chunk`` ticks, each between its own pair of
+    CUDA events (the device time; a chunk that launched the kernel and
+    reads 0 ms raises), all of them on the host clock (the wall, up to a
+    ``torch.cuda.synchronize()``), and ``chunks`` more under
+    ``torch.profiler`` (the kernels it saw a chunk; None when it saw
+    none, as happens to a profile taken after another in one process)."""
+    from repro_torch.kernels.cycle import cycle_chunk
+
+    def run(s):
+        return cycle_chunk(cfg, *args, s, ticks=chunk,
+                           fast_forward=fast_forward)
+
+    st = run(st)
+    torch.cuda.synchronize()
+    launched, pairs = cycle_chunk.launches, []
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = run(st)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ticks = chunks * chunk
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    launches = cycle_chunk.launches - launched
+    chunk_ms = [s.elapsed_time(e) for s, e in pairs]
+    if launches > 0 and min(chunk_ms) <= 0:
+        raise RuntimeError(f"profile_chunks: {launches} launches read "
+                           f"{chunk_ms} ms on the CUDA events")
+    device_ms = sum(chunk_ms) / ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(chunks):
+            st = run(st)
+        torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == on_device]
+    return dict(
+        device=torch.cuda.get_device_name(0), lanes=st.cycle.shape[0],
+        pes=st.cycle.shape[1], chunk=chunk, chunks=chunks,
+        fast_forward=fast_forward, wall_ms_per_tick=wall_ms,
+        device_ms_per_tick=device_ms, device_busy_share=device_ms / wall_ms,
+        chunk_device_ms=chunk_ms,
+        cycle_chunk_launches_per_chunk=launches / chunks,
+        profiled_kernel_launches_per_chunk=(len(events) / chunks
+                                            if events else None),
+        kernels=sorted({e.name for e in events}),
+        max_cycle=int(st.cycle.max()))
+
+
+def profile_chase(dev, reps: int = 2) -> dict:
+    """``bench_ci``'s pointer-chase leg on both speeds (see the module
+    docstring); ``reps`` timed sweeps a speed after one warm-up, in
+    turns.  The engine calls are timed by
+    :class:`repro_torch.bench.multidevice.EngineCalls`, their chunk
+    kernels by CUDA events around each sweep's engine calls."""
+    from repro_torch.bench.multidevice import EngineCalls
+    from repro_torch.bench.workloads import pointer_chase_graph
+    from repro_torch.core import compiler
+    from repro_torch.core.sweep import SweepRequest, sweep
+    from repro_torch.kernels.cycle import cycle_chunk
+    cfg = machine.MachineConfig(width=8, height=8, mem_words=8192,
+                                max_cycles=400_000)
+    rowptr, col, src = pointer_chase_graph(512)
+    req = SweepRequest(workloads=[compiler.build_bfs(rowptr, col, src,
+                                                     cfg)] * 8, chunk=512)
+    cfgs = {"fast_forward": cfg,
+            "plain": dataclasses.replace(cfg, fast_forward=False)}
+    out = {name: dict(wall_s=[], engine_s=[]) for name in cfgs}
+    with EngineCalls(timed_on=[dev]) as rec:
+        for c in cfgs.values():
+            sweep(c, req, device=dev)
+        for _ in range(reps):
+            for name, c in cfgs.items():
+                rec.seconds.clear()
+                launched = cycle_chunk.launches
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                report = sweep(c, req, device=dev)
+                torch.cuda.synchronize(dev)
+                out[name]["wall_s"].append(time.perf_counter() - t0)
+                out[name]["engine_s"].append(sum(rec.seconds))
+                out[name]["launches"] = cycle_chunk.launches - launched
+                out[name]["dead_step_fraction"] = \
+                    report.telemetry.dead_step_fraction
+                rec.outs.clear()
+    return dict(device=torch.cuda.get_device_name(0), lanes=8, **out)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=64)
@@ -158,9 +284,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--static", action="store_true",
                     help="profile grid A's nexus lanes on the static and "
                          "on the traced engine instead")
+    ap.add_argument("--kernel", action="store_true",
+                    help="profile grid A and the chain on the engine chunk "
+                         "kernel, beside the torch-op ticks")
+    ap.add_argument("--chase", action="store_true",
+                    help="time bench_ci's pointer-chase sweep on both "
+                         "speeds, the engine calls apart from the wall")
     ns = ap.parse_args(argv)
     dev = torch.device(ns.device)
-    if ns.static:
+    if ns.chase:
+        out = profile_chase(dev)
+    elif ns.kernel:
+        out = {}
+        for name, build, ff in (
+                ("grid_a", grid_a_batch, False),
+                ("chain_fast_forward", chain_batch, True),
+                ("chain_plain", chain_batch, False)):
+            cfg, args, st = build(dev)
+            engine = (grid_a_engine(dev) if name == "grid_a"
+                      else chain_engine(dev, ff))
+            out[name] = dict(
+                kernel=profile_chunks(cfg, args, st, KERNEL_CHUNK,
+                                      KERNEL_CHUNKS, ff, dev),
+                torch_ops=profile_ticks(*engine, ns.ticks, dev))
+    elif ns.static:
         out = {name: profile_ticks(
             *grid_a_engine(dev, ["nexus"], static), ns.ticks, dev)
             for name, static in (("static", True), ("traced", False))}

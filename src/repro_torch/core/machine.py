@@ -13,7 +13,10 @@ geometry ``(B, 2)`` are runtime tensors, so one engine steps a whole
 ``N_max``; PEs at index >= width*height are inactive, exactly as in the
 reference's traced-geometry engine.  Where the reference runs a
 ``lax.while_loop`` over ``lax.scan`` chunks, this port runs a Python loop
-over chunks with one host synchronisation per chunk.  Sub-mesh lane
+over chunks with one host synchronisation per chunk, and each chunk of
+the traced engine is one launch of the hand-written kernel of
+:mod:`repro_torch.kernels.cycle` (its plain version, a loop of
+:func:`_step`, on CPU tensors).  Sub-mesh lane
 packing (``run_many(pack=True)``, waves of super-lanes), per-lane
 deadlines and the event-compressed engine (``cfg.fast_forward``, see
 :mod:`repro_torch.core.fastforward`) are ported as in the reference, and
@@ -26,7 +29,9 @@ The reference's static golden engines are ported too:
 ``traced_modes=False`` bakes the config's mode flags into the cycle as
 Python bools, so only the branch taken runs, and
 ``traced_geometry=False`` bakes its mesh (``cfg.neighbor_maps()``, no
-active-PE mask) into it; both give the traced engine's bits.  The
+active-PE mask) into it; both give the traced engine's bits, and both
+step their chunks with the plain loop, being the oracles that hold the
+traced engine to itself.  The
 integer semantics follow
 the reference exactly: floor division and Python-style modulo on possibly
 negative operands, first-index ``argmin``/``argmax`` tie-breaking, stable
@@ -36,6 +41,8 @@ int64), and int32 for every state leaf.
 The cycle updates the large queue tensors (``pend``, ``swq``) and the data
 memory (``mem_val``) of the state it is given in place, so a caller that
 needs the previous state keeps a copy; every other leaf is a new tensor.
+An engine call keeps that contract: it copies the other leaves once, and
+its chunks then update the copy in place.
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU.
@@ -991,11 +998,25 @@ def _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids, c0, budget, st,
     return st2
 
 
+#: the leaves an engine call updates in place in its caller's state (the
+#: queues and the data memory) or only reads; it copies the others once
+_SHARED_LEAVES = ("pend", "swq", "mem_val", "amq", "amq_len", "mem_meta")
+
+
+def _own_leaves(st: MachineState) -> MachineState:
+    """``st`` with a private contiguous copy of every leaf but
+    :data:`_SHARED_LEAVES`: the chunk kernel updates the whole state in
+    place, and the caller keeps every leaf but the queues and memory."""
+    return st._replace(**{
+        k: getattr(st, k).clone(memory_format=torch.contiguous_format)
+        for k in MachineState._fields if k not in _SHARED_LEAVES})
+
+
 # Engines keyed like the reference's ``_ENGINE_CACHE``: the traced axes
 # (mode flags, width x height) are folded out of the config, so lanes that
 # differ only in mode or mesh size share one entry.  An entry holds the
-# cycle and fast-forward closures, built once; torch compiles nothing, so
-# the cache saves only their construction, but it keeps the reference's
+# chunk loop and its lone-flight probe; torch compiles nothing, so the
+# cache saves only their construction, but it keeps the reference's
 # contract that a blocking ``run_many`` and a sweep service over the same
 # arena run one engine.
 _ENGINE_CACHE: dict = {}
@@ -1073,18 +1094,26 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
     engine = _ENGINE_CACHE.get(key)
     if engine is not None:
         return engine
-    cyc = _make_cycle(cfg, n_max)
-    ffwd = lone_probe = None
+    lone_probe = None
     if cfg.fast_forward:
-        from repro_torch.core.fastforward import (make_fast_forward,
-                                                  make_lone_probe)
-        ffwd = make_fast_forward(cfg, n_max)
+        from repro_torch.core.fastforward import make_lone_probe
         lone_probe = make_lone_probe()
+    from repro_torch.kernels import cycle as chunk_kernel
+    # The traced engine steps each chunk with the hand-written kernel (its
+    # plain version on CPU tensors); the static golden engines are oracles
+    # that cross-check it, so they keep the plain loop, by their config.
+    traced = cfg.traced_modes and cfg.traced_geometry
+
+    def run_chunk(*args, fast_forward: bool):
+        fn = (chunk_kernel.cycle_chunk if traced
+              else chunk_kernel.cycle_chunk_plain)
+        return fn(cfg, *args, ticks=chunk, fast_forward=fast_forward)
 
     def chunks(prog, modes, geoms, sub_ids, local_ids, st: MachineState,
                budget):
         """One lane group's run: a generator that yields after each chunk
         it enqueues and returns ``(st, over, idle, ticks)``."""
+        st = _own_leaves(st)
         cycle0 = st.cycle.clone()
         bsz = st.cycle.shape[0]
         over = torch.zeros((bsz,), dtype=torch.bool, device=st.cycle.device)
@@ -1095,17 +1124,15 @@ def _get_engine(cfg: MachineConfig, chunk: int, n_max: int | None = None,
             # and it has budget left this call.
             room = (st.cycle < cfg.max_cycles) & (st.cycle - cycle0 < budget)
             go = ((~group_idle(st, sub_ids)) & room).any() & ~over.any()
-            if ffwd is not None:
+            if lone_probe is not None:
                 lone = (lone_probe(sub_ids, st) & room).any()
                 go, lone = torch.stack([go, lone]).tolist()
             else:
                 go, lone = bool(go), False
             if not go:
                 break
-            use = ffwd if lone else None
-            for _ in range(chunk):
-                st = _step(cyc, cfg, prog, modes, geoms, sub_ids, local_ids,
-                           cycle0, budget, st, use)
+            st = run_chunk(prog, modes, geoms, sub_ids, local_ids, cycle0,
+                           budget, st, fast_forward=lone)
             # pending-FIFO high-water check at chunk granularity; PEs
             # frozen at max_cycles are exempt.
             high = (st.pend_n >= PEND_CAP - 2) & (st.cycle < cfg.max_cycles)
