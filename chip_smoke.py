@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
    the kernel ``csrc/cycle.cu`` (``kernels.cycle.cycle_chunk``) and by
    its plain version in 512-tick chunks, every leaf of the state equal
    bit for bit after each of the first two chunks; the kernel's chunk
-   timed with CUDA events beside the plain version's and its bound;
+   timed with CUDA events beside the plain version's, its bound and its
+   barrier floor (``cycle_floor``), and so are the chain's compressed
+   chunk and one chunk of the first packed wave of the fig17 sweep leg;
 3. the simulator and kernel-leg path, every launch count set to 0 just
    before it and read just after (``cycle_chunk``'s before and after each
    of ``[sim]``, ``[sweep]``, ``[service]``, ``[figures]`` and
@@ -280,9 +282,9 @@ from repro_torch.bench import (bench_ci, fig11_performance,  # noqa: E402
 from repro_torch.bench import dryrun_check  # noqa: E402
 from repro_torch.bench import kernels as bench_kernels  # noqa: E402
 from repro_torch.bench.profile_serve import serve_config  # noqa: E402
-from repro_torch.bench.profile_engine import (chain_batch,  # noqa: E402
-                                              grid_a_batch, grid_a_engine,
-                                              profile_ticks)
+from repro_torch.bench.profile_engine import (  # noqa: E402
+    chain_batch, event_ms, fig17_wave_batch, floor_ms, grid_a_batch,
+    grid_a_engine, lone_speed, profile_ticks)
 from repro_torch.bench.profile_train import FAMILY_LEGS  # noqa: E402
 from repro_torch.bench.profile_train import LEGS as TRAIN_LEGS  # noqa: E402
 from repro_torch.bench.workloads import make_all  # noqa: E402
@@ -1402,17 +1404,6 @@ def _copy_state(dst, src) -> None:
         getattr(dst, k).copy_(getattr(src, k))
 
 
-def _event_ms(fn) -> float:
-    """Milliseconds between CUDA events recorded around ``fn()``."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
 def run_cycle(reps: int = 11) -> dict:
     """The ``[cycle]`` phase: grid A's batch (39 lanes at 4x4) and the
     chain's (8 lanes of the 256-node pointer chase at 8x8), each at both
@@ -1420,16 +1411,21 @@ def run_cycle(reps: int = 11) -> dict:
     kernel) and by ``cycle_chunk_plain`` at the engine's chunk, every
     leaf compared after each of the first two chunks.  Then the kernel's
     time for a chunk of grid A's first 512 ticks (CUDA-event median of
-    ``reps`` launches, the initial state copied back before each) and
-    for the chain's compressed chunk, beside the plain version's first
-    chunk (CUDA events around its ~900 launches a tick, as context) and
-    the bound: the bytes the timed chunk's data must move
-    (``kernels.cycle.chunk_bytes``: the per-PE leaves once, the queue rows
-    pushed and popped, the memory words changed) at the card's memory
-    rate, a floor; the kernel itself is bound by the latency of a tick's
-    dependent loads and barriers.  Every leaf is bit-equal or the phase
-    fails, so ``max_abs_err`` is 0.  Returns the ``cycle_chunk`` row of
-    the kernels line (``launches`` filled in by the main path)."""
+    ``reps`` launches, the initial state copied back before each), for
+    the chain's compressed chunk and for the first packed wave of the
+    fig17 sweep leg (one 8x8 super-lane, mem_words 8192, at the speed the
+    engine picks; only timed: ``[sweep]`` holds fig17's records bit for
+    bit), each beside the kernel's barrier floor for the same launch
+    shape and ticks (``kernels.cycle.barrier_floor``: its four barriers a
+    tick and nothing else, the latency floor of a chunk); beside grid
+    A's, the plain version's first chunk (CUDA events around its ~900
+    launches a tick, as context) and the bound: the bytes the timed
+    chunk's data must move (``kernels.cycle.chunk_bytes``: the per-PE
+    leaves once, the queue rows pushed and popped, the memory words
+    changed) at the card's memory rate, a floor under the barrier floor.
+    Every leaf is bit-equal or the phase fails, so ``max_abs_err`` is 0.
+    Returns the ``cycle_chunk`` row of the kernels line (``launches``
+    filled in by the main path)."""
     dev = torch.device("cuda")
     batches = {"grid_a": grid_a_batch(dev), "chain": chain_batch(dev)}
     legs = {}
@@ -1446,7 +1442,7 @@ def run_cycle(reps: int = 11) -> dict:
                     def chunk():
                         st[key] = fn(cfg, *args, st[key], ticks=CYCLE_TICKS,
                                      fast_forward=ff)
-                    leg[f"{key}_ms"].append(_event_ms(chunk))
+                    leg[f"{key}_ms"].append(event_ms(chunk))
                 diff = first_difference(st["plain"], st["kernel"])
                 if diff is not None:
                     raise AssertionError(f"[cycle] {name} ({speed}) chunk "
@@ -1457,19 +1453,27 @@ def run_cycle(reps: int = 11) -> dict:
                   f"version on every leaf after each of {CYCLE_CHUNKS} "
                   f"chunks of {CYCLE_TICKS} ticks; {json.dumps(leg)}",
                   flush=True)
+    batches["fig17_wave"] = fig17_wave_batch(dev)
 
-    def median_ms(name, ff):
+    def timed(name, ff):
+        """The chunk's median ms and spread, the state after it, and the
+        barrier floor's ms."""
         cfg, args, st0 = batches[name]
         work = clone_state(st0)
         times = []
         for _ in range(reps):
             _copy_state(work, st0)
-            times.append(_event_ms(lambda: cycle_chunk(
+            times.append(event_ms(lambda: cycle_chunk(
                 cfg, *args, work, ticks=CYCLE_TICKS, fast_forward=ff)))
-        return statistics.median(times), times, work
+        b, n = st0.cycle.shape
+        flo = floor_ms(b, n, int(args[0].shape[1]), CYCLE_TICKS, dev)
+        return statistics.median(times), times, work, flo
 
-    ms, times, after = median_ms("grid_a", False)
-    chain_ms, _, _ = median_ms("chain", True)
+    ms, times, after, flo = timed("grid_a", False)
+    chain_ms, _, _, chain_flo = timed("chain", True)
+    _, wave_args, wave_st = batches["fig17_wave"]
+    wave_ff = lone_speed(wave_args, wave_st)
+    wave_ms, wave_times, _, wave_flo = timed("fig17_wave", wave_ff)
     cfg, args, st0 = batches["grid_a"]
     nbytes = chunk_bytes(cfg, args, st0, after)
     row = dict(name="cycle_chunk", route="cuda",
@@ -1481,10 +1485,23 @@ def run_cycle(reps: int = 11) -> dict:
                **bound(nbytes, 0, torch.int32), library_ms=None,
                bound_is="a floor: the bytes this chunk's data moves at "
                         "least (chunk_bytes); the kernel is latency-bound",
+               floor_ms=flo, floor_share=flo / ms,
+               floor_is="cycle_floor: the kernel's launch shape running "
+                        "its four barriers a tick and nothing else",
                ticks=CYCLE_TICKS, lanes=int(st0.cycle.shape[0]),
                ms_per_tick=ms / CYCLE_TICKS, ms_spread=[min(times),
                                                         max(times)],
-               chain_ff_ms=chain_ms, bytes=nbytes, legs=legs)
+               chain_ff_ms=chain_ms, chain_ms_per_tick=chain_ms / CYCLE_TICKS,
+               chain_floor_ms=chain_flo,
+               chain_floor_share=chain_flo / chain_ms,
+               fig17_wave_ms=wave_ms,
+               fig17_wave_ms_per_tick=wave_ms / CYCLE_TICKS,
+               fig17_wave_spread=[min(wave_times), max(wave_times)],
+               fig17_wave_fast_forward=wave_ff,
+               fig17_wave_shape=list(wave_st.mem_val.shape),
+               fig17_wave_floor_ms=wave_flo,
+               fig17_wave_floor_share=wave_flo / wave_ms,
+               bytes=nbytes, legs=legs)
     print(f"[cycle] {json.dumps(row)}", flush=True)
     return row
 
@@ -2581,7 +2598,8 @@ def main() -> int:
             "reduced": mesh_reduced, "families": mesh_families},
         "dryrun": dry, "figures": figures, "cycle": {
             k: cycle_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "chain_ff_ms", "legs")},
+                                      "floor_ms", "chain_ff_ms",
+                                      "fig17_wave_ms", "legs")},
         "cycle_chunk_launches": chunks}))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -30,7 +30,17 @@ chunks timed with CUDA events (a pair a chunk) and on the host clock and
 as many more under ``torch.profiler`` (all inside the runs' busy
 stretch), each beside the torch-op reading of the same batch; one JSON
 line with the wall and device milliseconds a tick and the launches a
-chunk.
+chunk.  ``--kernel --phases`` reads the kernel instead on grid A, the
+chain at both speeds and the first packed wave of the fig17 sweep leg,
+each from its initial state: the CUDA-event median of a
+:data:`PHASE_TICKS`-tick chunk, the kernel's barrier floor for the same
+launch shape and ticks (``kernels.cycle.barrier_floor``: its grid, block
+and shared memory running its four barriers a tick and nothing else) and
+its phase log (``cycle.cu`` built with ``-DCYCLE_PHASES``: the median ns
+(``%globaltimer``) and SM cycles of each of a tick's four phases, and the
+SM cycles between its finer marks, over the lanes and ticks,
+:func:`phase_log`); ``--against PATH`` also times the
+``cycle.cu`` at PATH (an earlier version) in turns with this one.
 
 ``--chase`` times ``bench_ci``'s pointer-chase leg (8 lanes of a
 512-node chase at 8x8, chunk 512) through ``sweep`` on both speeds, each
@@ -60,6 +70,21 @@ from repro_torch.core.fastforward import make_fast_forward
 #: ``--kernel``'s chunk and the chunks timed (and profiled) after one
 #: warm-up chunk: 640 ticks in all, inside grid A's and the chain's work
 KERNEL_CHUNK, KERNEL_CHUNKS = 128, 2
+#: ``csrc/cycle.cu``'s phase log (``-DCYCLE_PHASES``): the lanes and the
+#: first ticks of a launch it covers, and its marks a tick in time order
+#: (the tick's start, the end of barrier 1, five marks inside phase 2,
+#: the ends of barriers 2 and 3, three marks inside phase 4, the end of
+#: barrier 4)
+PHASE_LANES, PHASE_TICKS, PHASE_MARKS = 64, 512, 13
+#: a tick's phases, each ending at its barrier, and their first and last
+#: marks: the sub-lane sums, the PE-local work, the copy of the
+#: neighbours' grants, the FIFOs' rewrite
+PHASES = {"sums": (0, 1), "local": (1, 7), "inbox": (7, 8),
+          "fifos": (8, 12)}
+#: the stretches between consecutive marks (thread 0's warp)
+STEPS = ("sums", "routes", "select", "decode_alu", "issue_write_push",
+         "emit", "arbitrate", "inbox", "teleport", "compact_receive",
+         "inject", "stats")
 
 
 def _lane_args(cfg, wb, device):
@@ -77,9 +102,12 @@ def _lane_args(cfg, wb, device):
                             wb.mem_meta, device=device)
     modes = (np.full((wb.batch,), machine.mode_code(cfg)) if wb.modes is None
              else wb.modes)
-    args = (t(wb.prog), t(modes), t(wb.geoms), t(np.zeros((wb.batch, n))),
-            t(np.tile(np.arange(n), (wb.batch, 1))), st.cycle.clone(),
-            t(machine.unbounded_budget(wb.batch, n)))
+    packed = wb.sub_ids is not None
+    args = (t(wb.prog), t(modes), t(wb.geoms),
+            t(wb.sub_ids if packed else np.zeros((wb.batch, n))),
+            t(wb.local_ids if packed else np.tile(np.arange(n),
+                                                  (wb.batch, 1))),
+            st.cycle.clone(), t(machine.unbounded_budget(wb.batch, n)))
     return args, st
 
 
@@ -108,6 +136,26 @@ def chain_batch(device):
     8x8): ``(cfg, args, st)``."""
     cfg, kw, _ = golden.port_sweep_leg("chain")
     return (cfg, *_lane_args(cfg, stack_workloads(kw["workloads"]), device))
+
+
+def fig17_wave_batch(device):
+    """The first packed wave of the fig17 sweep leg as ``run_many(pack=
+    True)`` plans it (one 8x8 super-lane of packed sub-lanes, mem_words
+    8192): ``(cfg, args, st)``."""
+    from repro_torch.core.batch import pack_schedule, static_cycle_hints
+    cfg, kw, _ = golden.port_sweep_leg("fig17")
+    wls = kw["workloads"]
+    batches, _, _ = pack_schedule(wls, cycle_hints=static_cycle_hints(wls))
+    wb = batches[0]
+    cfg = dataclasses.replace(cfg, mem_words=max(cfg.mem_words, wb.mem_words))
+    return (cfg, *_lane_args(cfg, wb, device))
+
+
+def lone_speed(args, st) -> bool:
+    """The speed the engine steps a chunk from ``st`` at: compressed when
+    a sub-lane is in lone flight (its probe, as ``machine.run_engine``)."""
+    from repro_torch.core.fastforward import make_lone_probe
+    return bool(make_lone_probe()(args[3], st).any())
 
 
 def grid_a_engine(device, modes=None, static: bool = False):
@@ -235,6 +283,137 @@ def profile_chunks(cfg, args, st, chunk: int, chunks: int,
         max_cycle=int(st.cycle.max()))
 
 
+def _chunk_fn(lib):
+    """The ``cycle_chunk`` entry point of a built copy of ``cycle.cu``."""
+    import ctypes
+    fn = lib.cycle_chunk
+    fn.argtypes = [ctypes.c_void_p] * 32 + [ctypes.c_int] * 12 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_phases(against: str | None = None) -> dict:
+    """``cycle.cu`` built with its phase log (``-DCYCLE_PHASES``) and, with
+    ``against``, the ``cycle.cu`` at that path as it is (an earlier
+    version, timed in turns with this one); {name: CDLL}."""
+    from repro_torch.kernels import _build
+    jobs = {"phases": ({"cycle": _build.source("cycle.cu")},
+                       ("-DCYCLE_PHASES",))}
+    if against is not None:
+        with open(against) as f:
+            jobs["against"] = ({"cycle": f.read()}, ())
+    return {name: _build.build_copies(f"cycle_{name}", srcs, flags)["cycle"]
+            for name, (srcs, flags) in jobs.items()}
+
+
+def _launch_on(fn, cfg, args, st, ticks: int, fast_forward: bool) -> None:
+    from repro_torch.kernels import _build, cycle as kc
+    lane_args = dict(zip(("prog", "modes", "geoms", "sub_ids", "local_ids",
+                          "cycle0", "budget"), args))
+    _build.check_launch("cycle_chunk (a built copy)", kc._launch(
+        cfg, lane_args, st, ticks, fast_forward,
+        torch.cuda.current_stream().cuda_stream, fn=fn))
+
+
+def phase_log(lib, cfg, args, st, ticks: int, fast_forward: bool) -> dict:
+    """One chunk of ``ticks`` ticks from ``st`` on the phases build ``lib``
+    (``st`` updated in place): the median ns (``%globaltimer``) and SM
+    cycles of each phase of a tick (:data:`PHASES`), the SM cycles of
+    each stretch between its marks (:data:`STEPS`) and of the whole
+    tick, over the logged lanes and ticks."""
+    import ctypes
+    from repro_torch.kernels import _build
+    read = lib.cycle_phases
+    read.argtypes = [ctypes.c_void_p]
+    log = np.zeros((PHASE_LANES, PHASE_TICKS, PHASE_MARKS, 2), np.uint64)
+    torch.cuda.synchronize()
+    _build.check_launch("cycle_phases", read(log.ctypes.data))   # zeroes
+    _launch_on(_chunk_fn(lib), cfg, args, st, ticks, fast_forward)
+    torch.cuda.synchronize()
+    _build.check_launch("cycle_phases", read(log.ctypes.data))
+    lanes = min(st.cycle.shape[0], PHASE_LANES)
+    ticks = min(ticks, PHASE_TICKS)
+    ns = log[:lanes, :ticks, :, 0].astype(np.int64)
+    cyc = log[:lanes, :ticks, :, 1].astype(np.int64)
+    if (np.diff(ns, axis=2) < 0).any() or not ns.any():
+        raise RuntimeError("phase_log: the phase log is empty or out of "
+                           "order")
+
+    def med(t, a, b):
+        return float(np.median(t[..., b] - t[..., a]))
+
+    return dict(lanes=lanes, ticks=ticks, fast_forward=fast_forward,
+                phase_ns={k: med(ns, a, b) for k, (a, b) in PHASES.items()},
+                phase_cycles={k: med(cyc, a, b)
+                              for k, (a, b) in PHASES.items()},
+                step_cycles={k: med(cyc, i, i + 1)
+                             for i, k in enumerate(STEPS)},
+                tick_ns=med(ns, 0, -1), tick_cycles=med(cyc, 0, -1),
+                sm_ghz=float((cyc[..., -1] - cyc[..., 0]).sum()
+                             / (ns[..., -1] - ns[..., 0]).sum()))
+
+
+def event_ms(fn) -> float:
+    """Milliseconds between CUDA events recorded around ``fn()``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def floor_ms(lanes: int, n: int, p_rows: int, ticks: int, dev,
+             reps: int = 11) -> float:
+    """The median CUDA-event ms of ``reps`` launches of the chunk kernel's
+    barrier floor (``kernels.cycle.barrier_floor``) of ``ticks`` ticks,
+    after three untimed ones."""
+    from repro_torch.kernels.cycle import barrier_floor
+    for _ in range(3):
+        barrier_floor(lanes, n, p_rows, ticks, dev)
+    return float(np.median([event_ms(lambda: barrier_floor(
+        lanes, n, p_rows, ticks, dev)) for _ in range(reps)]))
+
+
+def profile_phases(libs: dict, cfg, args, st0, fast_forward: bool, dev,
+                   reps: int = 5) -> dict:
+    """The chunk kernel on one batch: the median CUDA-event ms of ``reps``
+    chunks of :data:`PHASE_TICKS` ticks from ``st0`` (a fresh copy each)
+    on ``cycle_chunk`` and, when ``libs`` holds ``"against"``, on that
+    build in turns (this, that, that, this, ...); the barrier floor of the
+    same launch shape and ticks; the phase log of one such chunk."""
+    from repro_torch.kernels.cycle import clone_state, cycle_chunk
+    ticks = PHASE_TICKS
+    runs = {"kernel": lambda s: cycle_chunk(cfg, *args, s, ticks=ticks,
+                                            fast_forward=fast_forward)}
+    if "against" in libs:
+        fn = _chunk_fn(libs["against"])
+        runs["against"] = lambda s: _launch_on(fn, cfg, args, s, ticks,
+                                               fast_forward)
+    work = clone_state(st0)
+    times = {k: [] for k in runs}
+    for r in range(reps):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            for name in st0._fields:
+                getattr(work, name).copy_(getattr(st0, name))
+            times[k].append(event_ms(lambda: runs[k](work)))
+    b, n = st0.cycle.shape
+    ms = float(np.median(times["kernel"]))
+    flo = floor_ms(b, n, int(args[0].shape[1]), ticks, dev)
+    out = dict(lanes=b, pes=n, ticks=ticks, fast_forward=fast_forward,
+               ms=ms, ms_all=times["kernel"], us_per_tick=ms * 1e3 / ticks,
+               floor_ms=flo, floor_us_per_tick=flo * 1e3 / ticks,
+               floor_share=flo / ms)
+    if "against" in times:
+        out.update(against_ms=float(np.median(times["against"])),
+                   against_ms_all=times["against"])
+    out["phases"] = phase_log(libs["phases"], cfg, args, clone_state(st0),
+                              ticks, fast_forward)
+    return out
+
+
 def profile_chase(dev, reps: int = 2) -> dict:
     """``bench_ci``'s pointer-chase leg on both speeds (see the module
     docstring); ``reps`` timed sweeps a speed after one warm-up, in
@@ -287,6 +466,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernel", action="store_true",
                     help="profile grid A and the chain on the engine chunk "
                          "kernel, beside the torch-op ticks")
+    ap.add_argument("--phases", action="store_true",
+                    help="with --kernel: the chunk kernel's phase log and "
+                         "barrier floor (grid A, the chain, fig17's first "
+                         "wave) instead of the torch-op readings")
+    ap.add_argument("--against", default=None,
+                    help="with --kernel --phases: a cycle.cu (an earlier "
+                         "version) whose chunks are timed in turns with "
+                         "this one's")
     ap.add_argument("--chase", action="store_true",
                     help="time bench_ci's pointer-chase sweep on both "
                          "speeds, the engine calls apart from the wall")
@@ -294,6 +481,18 @@ def main(argv=None) -> dict:
     dev = torch.device(ns.device)
     if ns.chase:
         out = profile_chase(dev)
+    elif ns.kernel and ns.phases:
+        libs = build_phases(ns.against)
+        out = {"device": torch.cuda.get_device_name(0)}
+        for name, build, ff in (
+                ("grid_a", grid_a_batch, False),
+                ("chain_fast_forward", chain_batch, True),
+                ("chain_plain", chain_batch, False),
+                ("fig17_wave", fig17_wave_batch, None)):
+            cfg, args, st = build(dev)
+            if ff is None:
+                ff = lone_speed(args, st)
+            out[name] = profile_phases(libs, cfg, args, st, ff, dev)
     elif ns.kernel:
         out = {}
         for name, build, ff in (

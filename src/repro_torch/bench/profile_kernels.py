@@ -124,37 +124,10 @@ def kernel_profile(fn, symbol: str, reps: int) -> dict:
                 events=len(mine), launch=launch)
 
 
-def _build_copies(sub: str, sources: dict, flags=()) -> dict:
-    """Build ``{name: source text}`` into ``build/repro_torch/<sub>/``, one
-    ``nvcc`` each, all started together; {name: CDLL}."""
-    out = os.path.join(_build.BUILD_DIR, sub)
-    os.makedirs(out, exist_ok=True)
-    jobs = {}
-    for name, src in sources.items():
-        with open(os.path.join(out, f"{name}.cu"), "w") as f:
-            f.write(src)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
-               os.path.join(out, f"{name}.so"), os.path.join(out, f"{name}.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {sub} {name}.cu:\n{log}")
-        libs[name] = ctypes.CDLL(os.path.join(out, f"{name}.so"))
-    return libs
-
-
-def _source(name: str) -> str:
-    with open(os.path.join(_build.CSRC, name)) as f:
-        return f.read()
-
-
 def build_no_loads() -> dict:
     """``group_matmul.cu``, ``sddmm.cu`` and ``bcsr_spmm.cu`` built against
     a copy of ``tile_f32.cuh`` whose fetch loads constants; {name: CDLL}."""
-    header = _source("tile_f32.cuh")
+    header = _build.source("tile_f32.cuh")
     if FETCH not in header:
         raise RuntimeError("tile_f32.cuh no longer has the fetch this "
                            "build replaces")
@@ -162,26 +135,25 @@ def build_no_loads() -> dict:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "tile_f32.cuh"), "w") as f:
         f.write(header.replace(FETCH, NO_LOADS))
-    return _build_copies("no_loads", {
-        name: _source(f"{name}.cu")
-        for name in ("group_matmul", "sddmm", "bcsr_spmm")},
-        (f"-I{_build.CSRC}",))
+    return _build.build_copies("no_loads", {
+        name: _build.source(f"{name}.cu")
+        for name in ("group_matmul", "sddmm", "bcsr_spmm")})
 
 
 def build_tma_no_loads():
     """``group_matmul.cu`` built with ``-DGM_NO_LOADS``: the loading
     thread of the tensor-core shape and of the weight stream issues no
     TMA load."""
-    return _build_copies("tma_no_loads",
-                         {"group_matmul": _source("group_matmul.cu")},
-                         ("-DGM_NO_LOADS", f"-I{_build.CSRC}")
-                         )["group_matmul"]
+    return _build.build_copies(
+        "tma_no_loads", {"group_matmul": _build.source("group_matmul.cu")},
+        ("-DGM_NO_LOADS",))["group_matmul"]
 
 
 def build_phases():
     """``bcsr_spmm.cu`` built with its phase log (``-DBCSR_PHASES``)."""
-    return _build_copies("phases", {"bcsr_spmm": _source("bcsr_spmm.cu")},
-                         ("-DBCSR_PHASES", f"-I{_build.CSRC}"))["bcsr_spmm"]
+    return _build.build_copies(
+        "phases", {"bcsr_spmm": _build.source("bcsr_spmm.cu")},
+        ("-DBCSR_PHASES",))["bcsr_spmm"]
 
 
 def phases(lib, call, n_ctas: int, n_sms: int) -> dict:

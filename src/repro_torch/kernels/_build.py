@@ -120,6 +120,36 @@ def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, *,
     return fn
 
 
+def build_copies(sub: str, sources: dict, flags=()) -> dict:
+    """Build ``{name: source text}`` into ``build/repro_torch/<sub>/`` with
+    extra ``flags`` (a profiling or floor variant of a kernel), one
+    ``nvcc`` each, all started together; {name: CDLL}."""
+    out = os.path.join(BUILD_DIR, sub)
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for name, src in sources.items():
+        with open(os.path.join(out, f"{name}.cu"), "w") as f:
+            f.write(src)
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o",
+               os.path.join(out, f"{name}.so"), os.path.join(out, f"{name}.cu")]
+        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[f"{sub}/{name}"] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {sub} {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(os.path.join(out, f"{name}.so"))
+    return libs
+
+
+def source(name: str) -> str:
+    """The text of ``csrc/<name>``."""
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
 def check_launch(symbol: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with error {err}")

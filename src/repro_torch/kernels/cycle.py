@@ -4,9 +4,10 @@ Replaces no Pallas kernel: the reference runs the simulator as XLA ops,
 and this is the device counterpart of the ``lax.scan`` chunk of its
 ``_get_engine.engine_fn`` (``src/repro/core/machine.py:1314-1390``).  On
 CUDA tensors :func:`cycle_chunk` launches the hand-written kernel
-``csrc/cycle.cu`` (one CTA per lane, one thread per PE, every tick of
-the chunk inside the launch); on CPU tensors it runs
-:func:`cycle_chunk_plain`, the same ticks as the port's torch ops
+``csrc/cycle.cu`` (one CTA per lane, two threads a PE up to 128 PEs and
+one past them, every tick of the chunk inside the launch); on CPU
+tensors it runs :func:`cycle_chunk_plain`, the same ticks as the port's
+torch ops
 (``machine._step``, and on a compressed chunk the fast-forward after
 each tick).  Both give the same bits in every int32 leaf.  The kernel's
 bound and design are noted in the CUDA source's header.
@@ -21,8 +22,8 @@ from repro_torch.core import machine
 from repro_torch.core.am import CFG_F, MSG_F
 from repro_torch.kernels import _build
 
-#: the largest PE axis the kernel takes (one thread a PE in one CTA);
-#: ``csrc/cycle.cu``'s ``MAX_PES``
+#: the largest PE axis the kernel takes (one thread a PE in one CTA past
+#: 128 PEs); ``csrc/cycle.cu``'s ``MAX_PES``
 MAX_PES = 1024
 #: the leaves the cycle only reads (returned as they are)
 READ_ONLY = ("amq", "amq_len", "mem_meta")
@@ -127,11 +128,13 @@ def cycle_chunk(cfg, prog, modes, geoms, sub_ids, local_ids, cycle0, budget,
 
 
 def _launch(cfg, lane_args: dict, st: machine.MachineState, ticks: int,
-            fast_forward: bool, stream: int) -> int:
-    """Call the C launcher on checked tensors; returns its error code."""
+            fast_forward: bool, stream: int, fn=None) -> int:
+    """Call the C launcher (``fn``, by default the built ``cycle_chunk``)
+    on checked tensors; returns its error code."""
     b, n = st.cycle.shape
     m_words = int(st.mem_val.shape[2])
-    fn = _build.bind("cycle", "cycle_chunk", 32, 12)
+    if fn is None:
+        fn = _build.bind("cycle", "cycle_chunk", 32, 12)
     ptrs = [t.data_ptr() for t in lane_args.values()] + \
         [getattr(st, k).data_ptr() for k in machine.MachineState._fields]
     return fn(*ptrs, b, n, int(lane_args["prog"].shape[1]),
@@ -142,6 +145,35 @@ def _launch(cfg, lane_args: dict, st: machine.MachineState, ticks: int,
 
 
 cycle_chunk.launches = 0
+
+
+def lane_threads(n: int) -> int:
+    """``csrc/cycle.cu``'s threads a lane of ``n`` PEs: a pair a PE, 16 PEs
+    a warp, up to 128 PEs; a thread a PE, in whole warps, past them."""
+    return 32 * -(-n // 16) if n <= 128 else 32 * -(-n // 32)
+
+
+def barrier_floor(lanes: int, n: int, p_rows: int, ticks: int,
+                  device) -> torch.Tensor:
+    """Launch ``csrc/cycle.cu``'s ``cycle_floor``: the chunk kernel's launch
+    shape for ``lanes`` lanes of ``n`` PEs and a program of ``p_rows``
+    rows (its grid, block and shared memory) running ``ticks`` ticks of
+    its barriers and nothing else: the latency floor of a chunk.  Returns
+    the (lanes, :func:`lane_threads`) int32 words it wrote.  A
+    measurement, not a step of the engine: it counts no launch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"barrier_floor times the card, not {dev}")
+    if not 1 <= n <= MAX_PES:
+        raise ValueError(f"barrier_floor takes 1 to {MAX_PES} PEs, not {n}")
+    out = torch.empty((lanes, lane_threads(n)), dtype=torch.int32,
+                      device=dev)
+    fn = _build.bind("cycle", "cycle_floor", 1, 4)
+    with torch.cuda.device(dev):
+        err = fn(out.data_ptr(), lanes, n, p_rows, int(ticks),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("cycle_floor", err)
+    return out
 
 
 def clone_state(st: machine.MachineState) -> machine.MachineState:

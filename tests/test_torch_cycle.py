@@ -19,7 +19,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.bench.harness import _placement_for  # noqa: E402
 from repro_torch.bench.workloads import (make_all,  # noqa: E402
                                          pointer_chase_graph)
-from repro_torch.core import compiler, machine  # noqa: E402
+from repro_torch.core import am, compiler, machine  # noqa: E402
 from repro_torch.core.batch import pack_workloads, stack_workloads  # noqa: E402
 from repro_torch.core.fastforward import make_lone_probe  # noqa: E402
 from repro_torch.kernels import cycle as kc  # noqa: E402
@@ -267,6 +267,88 @@ def test_chunk_bytes_counts_what_the_chunk_moved(mixed):
 
 
 # ---------------------------------------------------------------------------
+# the identities ``csrc/cycle.cu`` is written to, in Python
+# ---------------------------------------------------------------------------
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _wrap(x):
+    """``x`` as an int32 wraps it."""
+    return (x - INT_MIN) % 2 ** 32 + INT_MIN
+
+
+def _c_div(a, b):
+    """C's int32 ``a / b`` (the quotient truncated toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a < 0) == (b < 0) else -q
+
+
+def _pick_one_rotated(cand, r, p):
+    """The kernel's ``pick_one<P>``: for each mask of ``cand`` (int64
+    array), the first set bit of the mask rotated right by r mod p, where
+    i - r cannot wrap for any i < p (r >= INT_MIN + p); the priorities
+    (i - r) mod p in int32, in turn, below that."""
+    if r < INT_MIN + p:
+        prio = np.array([_wrap(i - r) % p for i in range(p)])
+        bits = (cand[:, None] >> np.arange(p)) & 1
+        score = np.where(bits == 1, prio, p + 1)
+        return np.where(cand == 0, -1, score.argmin(1))
+    s = r - _c_div(r, p) * p             # C's r % p, then made >= 0
+    s = s + p if s < 0 else s
+    rot = ((cand >> s) | (cand << (p - s))) & ((1 << p) - 1)
+    low = rot & -rot                      # the first set bit, as a power
+    first = np.log2(np.maximum(low, 1)).astype(np.int64)
+    i = first + s
+    return np.where(cand == 0, -1, np.where(i >= p, i - p, i))
+
+
+@pytest.mark.parametrize("p", [machine.PORTS, machine.PORTS * machine.DEPTH])
+def test_pick_one_rotated_equals_the_ports_loop(p):
+    """The mask-rotate arbitration equals the port's ``_pick_one`` (one
+    candidate with the least (i - r) mod p in int32) for every mask of p
+    bits, at r in [-20, 20] and near both int32 edges, where i - r
+    wraps."""
+    cand = np.arange(2 ** p, dtype=np.int64)
+    bits = torch.as_tensor(((cand[:, None] >> np.arange(p)) & 1) == 1)
+    edges = [INT_MIN + k for k in range(p + 3)] + \
+        [INT_MAX - k for k in range(p + 3)]
+    for r in list(range(-20, 21)) + edges:
+        rr = torch.full((len(cand),), r, dtype=torch.int32)
+        onehot = machine._pick_one(bits, rr)
+        want = torch.where(onehot.any(-1), onehot.int().argmax(-1),
+                           -1).numpy()
+        np.testing.assert_array_equal(_pick_one_rotated(cand, r, p), want,
+                                      err_msg=f"p={p}, r={r}")
+
+
+def test_floor_division_by_a_positive_divisor_in_32_bits():
+    """The kernel's ``fdivp`` / ``pmodp`` (C's truncating int32 quotient,
+    one step down where the remainder is negative) equal Python's ``//``
+    and ``%`` for every positive divisor over the int32 edges, and no
+    quotient or product leaves int32; the Valiant hash's modulus |d| + 1
+    (|d| < 2^31) is exact in uint32."""
+    divisors = [1, 2, 3, 4, 5, 7, 8, 15, 16, 64, 512, 2048, 400_000,
+                INT_MAX - 1, INT_MAX]
+    values = sorted({v for b in divisors for v in (
+        INT_MIN, INT_MIN + 1, INT_MIN + b, -b - 1, -b, -b + 1, -1, 0, 1,
+        b - 1, b, b + 1, INT_MAX - b, INT_MAX - 1, INT_MAX)
+        if INT_MIN <= v <= INT_MAX})
+    for b in divisors:
+        for a in values:
+            q = _c_div(a, b)
+            qb = q * b
+            assert INT_MIN <= q <= INT_MAX and INT_MIN <= qb <= INT_MAX
+            fdiv = q - 1 if a - qb < 0 else q
+            r = a - qb
+            pmod = r + b if r < 0 else r
+            assert (fdiv, pmod) == (a // b, a % b), (a, b)
+    for d in (0, 1, 7, 2 ** 31 - 1):
+        m = (d + 1) & 0xFFFFFFFF
+        for h in (0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1):
+            assert m > 0 and h % m == h % (d + 1)
+
+
+# ---------------------------------------------------------------------------
 # on the card: the kernel against the plain version
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -408,6 +490,185 @@ def test_cuda_engine_budget_b_then_bprime(cuda_device, fast_forward):
     c = call(kc.clone_state(st), 237)
     _assert_same(b, a, "b then b'")
     _assert_same(b, c, "two calls")
+
+
+#: the kernel's edges, each a state made from the mixed batch: a pending
+#: queue past the kernel's shared-memory window of 16 rows (``csrc/
+#: cycle.cu``'s PEND_WINDOW), rings whose heads wrap their caps, registers
+#: and counters near the int32 edges, heads bound off the mesh, words left
+#: in FIFO slots past their counts (the kernel zeroes a slot only where a
+#: word can remain)
+EDGES = ("window", "wrap", "int32_edges", "far_heads", "stale_slots")
+#: rows moved from a PE's static queue onto its pending ring ("window")
+OVERFILL = 24
+PEND_WINDOW = 16
+
+
+def _edge_leaves(cfg, lanes, leaves, edge):
+    """The mixed batch's warm state (numpy leaves) changed at ``edge``
+    (:data:`EDGES`)."""
+    lv = {k: v.copy() for k, v in leaves.items()}
+    b, n = lv["cycle"].shape
+    ids = np.arange(b * n).reshape(b, n)
+    if edge == "window":
+        # the next static AMs of every PE with some left wait on its
+        # pending ring instead: past the window, draining one a tick
+        for i, p in zip(*np.nonzero(lv["amq_len"] > lv["amq_head"])):
+            h = lv["amq_head"][i, p]
+            take = min(OVERFILL, lv["amq_len"][i, p] - h)
+            for j in range(take):
+                pos = (lv["pend_h"][i, p] + lv["pend_n"][i, p]) \
+                    % machine.PEND_CAP
+                lv["pend"][i, p, pos] = lv["amq"][i, p, h + j]
+                lv["pend_n"][i, p] += 1
+            lv["amq_head"][i, p] = h + take
+    elif edge == "wrap":
+        # the live rows of both rings moved so that their heads sit two
+        # rows before the cap
+        for ring, cap in (("pend", machine.PEND_CAP),
+                          ("swq", cfg.stream_wait_cap)):
+            head, count = lv[f"{ring}_h"], lv[f"{ring}_n"]
+            for i in range(b):
+                for p in range(n):
+                    old = (head[i, p] + np.arange(count[i, p])) % cap
+                    new = (cap - 2 + np.arange(count[i, p])) % cap
+                    lv[ring][i, p, new] = lv[ring][i, p, old].copy()
+            head[:] = cap - 2
+    elif edge == "int32_edges":
+        rr = np.array([INT_MAX, INT_MAX - 1, INT_MIN, INT_MIN + 1,
+                       INT_MIN + 4, INT_MIN + 5, INT_MIN + 14, INT_MIN + 15,
+                       -1, -6, 7])
+        lv["rr"] = rr[ids % len(rr)].astype(np.int32)
+        for k in ("st_busy", "st_exec", "st_enroute", "st_hops", "st_inj"):
+            lv[k] = (INT_MAX - ids % 3).astype(np.int32)
+        lv["st_stall"] = np.full_like(lv["st_stall"], INT_MAX)
+        # a third of the lanes frozen near INT32_MAX (past max_cycles, at
+        # work), a third near INT32_MIN (the cycles left wrap)
+        lane = np.arange(b)[:, None]
+        lv["cycle"] = np.where(lane % 3 == 1, INT_MAX - 2 - ids % 2,
+                               np.where(lane % 3 == 2, INT_MIN + 3 + ids % 2,
+                                        lv["cycle"])).astype(np.int32)
+    elif edge == "stale_slots":
+        gen = np.random.default_rng(3)
+        past = np.arange(machine.DEPTH) >= lv["buf_n"][..., None]
+        stale = past & (gen.random(past.shape) < 0.3)
+        noise = gen.integers(-50, 50, size=lv["buf"].shape, dtype=np.int32)
+        lv["buf"] = np.where(stale[..., None], noise, lv["buf"])
+    else:
+        # half the live heads and the next static AMs bound to -1, past
+        # the mesh, past the PE axis or to INT32_MAX, some by way of a
+        # waypoint off the mesh; the lone flight's flit among them
+        for i in range(b):
+            w, h = (int(v) for v in lanes["geoms"][i])
+            far = [-1, w * h + 1, n + 3, INT_MAX]
+            for p in range(n):
+                for q in range(machine.PORTS):
+                    key = i + p + q
+                    if lv["buf_n"][i, p, q] > 0 and (key % 2 == 0
+                                                     or i == CHAIN_LANE):
+                        lv["buf"][i, p, q, 0, am.F_DST0] = far[key // 2 % 4]
+                        if key % 3 == 0:
+                            lv["buf"][i, p, q, 0, am.F_VIA] = w * h + 2
+                j = lv["amq_head"][i, p]
+                if j < lv["amq_len"][i, p]:
+                    lv["amq"][i, p, j, am.F_DST0] = far[(i + p) % 4]
+    return lv
+
+
+def _edge_state(mixed, edge, device):
+    """``(cfg, args, st)`` of :func:`_edge_leaves` on ``device``: ``args``
+    the chunk's lane arguments up to ``cycle0`` (the state's cycles)."""
+    cfg, lanes, leaves = mixed
+    st = convert.state_from_numpy(_edge_leaves(cfg, lanes, leaves, edge),
+                                  device=device)
+    args = [_t(lanes[k], device) for k in ("prog", "modes", "geoms",
+                                           "sub_ids", "local_ids")]
+    return cfg, args + [st.cycle.clone()], st
+
+
+def test_edge_states_reach_their_edges(mixed):
+    """The card tests' edge states are what they claim, and the plain
+    version steps them: pending queues past the window that drain,
+    heads two rows before the caps, registers at the int32 edges, heads
+    bound off the mesh."""
+    cfg, lanes, leaves = mixed
+    states = {e: _edge_state(mixed, e, "cpu") for e in EDGES}
+    _, _, st = states["window"]
+    over = st.pend_n > PEND_WINDOW
+    assert int(over.sum()) >= 8
+    _, _, st = states["wrap"]
+    assert int(st.pend_h.min()) == machine.PEND_CAP - 2
+    assert int(st.swq_h.min()) == cfg.stream_wait_cap - 2
+    _, _, st = states["int32_edges"]
+    assert int(st.rr.min()) == INT_MIN and int(st.cycle.max()) == INT_MAX - 2
+    _, _, st = states["far_heads"]
+    dst = st.buf[..., 0, am.F_DST0][st.buf_n > 0]
+    assert bool((dst == -1).any()) and bool((dst == INT_MAX).any())
+    _, _, st = states["stale_slots"]
+    past = torch.arange(machine.DEPTH) >= st.buf_n[..., None]
+    assert bool((st.buf[past] != 0).any())
+    cfg, args, st = states["window"]
+    budget = _t(_budget(lanes, 7))
+    after = kc.cycle_chunk_plain(cfg, *args, budget, kc.clone_state(st),
+                                 ticks=7, fast_forward=True)
+    drained = (st.pend_n - after.pend_n)[over]
+    assert int(drained.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_forward", [True, False], ids=["ff", "plain"])
+@pytest.mark.parametrize("k", [1, 7, 512])
+@pytest.mark.parametrize("edge", EDGES)
+def test_cuda_kernel_edges_equal_plain(cuda_device, mixed, edge, k,
+                                       fast_forward):
+    """The kernel's edges (:data:`EDGES`) on the card: a pending queue
+    past the shared-memory window that drains back under it within the
+    chunk, ring heads that wrap their caps, ``rr``, ``cycle`` and the
+    ``st_*`` counters near the int32 edges, heads bound to -1 or past
+    w*h; the kernel against ``cycle_chunk_plain``, every leaf bit for
+    bit."""
+    cfg, args, st = _edge_state(mixed, edge, cuda_device)
+    args.append(_t(_budget(mixed[1], k), cuda_device))
+    want = kc.cycle_chunk_plain(cfg, *args, kc.clone_state(st), ticks=k,
+                                fast_forward=fast_forward)
+    got = kc.cycle_chunk(cfg, *args, kc.clone_state(st), ticks=k,
+                         fast_forward=fast_forward)
+    torch.cuda.synchronize()
+    _assert_same(want, got, f"edge {edge}, {k} ticks")
+    if edge == "window" and k == 512:
+        # most queues that started past the window end the chunk under it
+        over = st.pend_n > PEND_WINDOW
+        back = int((got.pend_n[over] < PEND_WINDOW).sum())
+        assert back > int(over.sum()) // 2
+
+
+def _floor_word(ticks):
+    """``cycle_floor``'s word after ``ticks`` ticks: x ^ (x + tick) in
+    int32."""
+    x = 0
+    for t in range(ticks):
+        x = x ^ _wrap(x + t)
+    return x
+
+
+def test_barrier_floor_times_only_the_card():
+    """The barrier floor is a card measurement: no plain version on the
+    CPU."""
+    with pytest.raises(ValueError, match="times the card"):
+        kc.barrier_floor(2, 16, 8, 4, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 144])
+def test_cuda_barrier_floor_runs_every_tick(cuda_device, n):
+    """``cycle_floor`` at the chunk kernel's launch shapes (shared FIFOs up
+    to 128 PEs, device FIFOs past) runs every tick it is given: each PE's
+    word is the floor loop's after that many ticks."""
+    for ticks in (1, 7, 512):
+        out = kc.barrier_floor(3, n, 8, ticks, cuda_device)
+        torch.cuda.synchronize()
+        assert out.shape == (3, kc.lane_threads(n))
+        assert bool((out == _floor_word(ticks)).all())
 
 
 @pytest.mark.cuda
